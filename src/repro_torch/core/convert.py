@@ -1,0 +1,71 @@
+"""Carry a fitted forest across from the reference.
+
+For this system the weights are the fitted forest. The reference keeps each
+tree as seven numpy arrays (``repro.core.forest.Tree``: feature, threshold,
+left, right, value, n_samples, impurity) and a dense forest as three tables;
+these functions rebuild the port's objects from such arrays, checking shapes
+and types, so a forest fitted by either package serves through the other.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping, Sequence
+
+import numpy as np
+
+from .forest import ExtraTreesRegressor, Tree
+from .forest_torch import DenseForest
+
+#: Tree fields and the dtype each is stored in.
+TREE_FIELDS = {"feature": np.int32, "threshold": np.float32,
+               "left": np.int32, "right": np.int32, "value": np.float32,
+               "n_samples": np.int32, "impurity": np.float32}
+
+
+def _tree(arrays: Mapping, n_features: int) -> Tree:
+    missing = set(TREE_FIELDS) - set(arrays)
+    if missing:
+        raise ValueError(f"tree arrays lack {sorted(missing)}")
+    fields = {k: np.array(arrays[k], dtype=dt) for k, dt in TREE_FIELDS.items()}
+    n = fields["feature"].shape
+    if len(n) != 1 or n[0] < 1 or any(a.shape != n for a in fields.values()):
+        raise ValueError(f"tree arrays must be 1-D of one length, got "
+                         f"{ {k: a.shape for k, a in fields.items()} }")
+    f = fields["feature"]
+    if f.min() < -1 or f.max() >= n_features:
+        raise ValueError(f"feature index outside [-1, {n_features})")
+    for side in ("left", "right"):
+        child = fields[side]
+        if child.min() < -1 or child.max() >= n[0]:
+            raise ValueError(f"{side} child index outside [-1, {n[0]})")
+    return Tree(**fields)
+
+
+def estimator_from_arrays(trees: Sequence[Mapping], n_features: int,
+                          params: Mapping) -> ExtraTreesRegressor:
+    """A fitted port ``ExtraTreesRegressor`` from per-tree arrays.
+
+    ``trees``: one mapping per tree with the ``TREE_FIELDS`` keys (e.g.
+    ``vars(t)`` of each reference tree); ``params``: the estimator's
+    ``get_params()``."""
+    est = ExtraTreesRegressor(**params)
+    est.trees_ = [_tree(t, n_features) for t in trees]
+    est.n_features_ = int(n_features)
+    return est
+
+
+def dense_from_arrays(feature, threshold, value, depth: int,
+                      n_features: int) -> DenseForest:
+    """A port ``DenseForest`` from the reference's three (T, N) tables."""
+    feature = np.array(feature, dtype=np.int32)
+    threshold = np.array(threshold, dtype=np.float32)
+    value = np.array(value, dtype=np.float32)
+    n_nodes = 2 ** (depth + 1) - 1
+    if (feature.ndim != 2 or feature.shape[1] != n_nodes
+            or threshold.shape != feature.shape
+            or value.shape != feature.shape):
+        raise ValueError(f"depth {depth} needs (T, {n_nodes}) tables, got "
+                         f"{feature.shape}, {threshold.shape}, {value.shape}")
+    if feature.min() < -1 or feature.max() >= n_features:
+        raise ValueError(f"feature index outside [-1, {n_features})")
+    return DenseForest(feature=feature, threshold=threshold, value=value,
+                       depth=int(depth), n_features=int(n_features))
