@@ -3,29 +3,49 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path — the paper's predictor behind
-``ForestEngine`` and ``MultiDeviceEngine`` — on the card, at the paper's
-serving size: 512-tree extra-trees forests fitted on the committed
-82-kernel x 4-size suite dataset (``tests/fixtures/suite_dataset_v1.json``),
-served at dense depth 10. Phases, one JSON line each:
+Drives the port's two serving paths on the card at full width:
 
-  env      torch / CUDA versions, the card, its power limit
-  build    nvcc of ``src/repro_torch/csrc/forest.cu`` and its -Xptxas -v lines
-  fit      the forests, fitted on the host
-  kernel   the CUDA kernel against its plain torch version (``ref.py``) on
-           the same CUDA tensors, depth {2,5,8,10} x batch {1,7,64,328,4096},
-           rtol 1e-5 / atol 1e-6, bitwise repeatable
-  serve    ForestEngine on the card (backend "hopper"): batched predict,
-           a burst of async singles, cache hits, a hot-swap, then
-           MultiDeviceEngine pricing and scheduling; answers held to the
-           plain CPU dense path; launch counter read around the run
-  timing   kernel, plain-version and engine times at B = 64 / 328 / 4096,
-           beside the least time the card could take (the bound)
+* the paper's predictor behind ``ForestEngine`` and ``MultiDeviceEngine``:
+  512-tree extra-trees forests fitted on the committed 82-kernel x 4-size
+  suite dataset (``tests/fixtures/suite_dataset_v1.json``), served at dense
+  depth 10;
+* the LM framework's zamba2-2.7b (54 Mamba2 layers, d_model 2560, the
+  shared attention block every 6 layers; random weights from a seeded
+  ``torch.Generator``) serving 4 prompts of 512 tokens and 32 greedy decode
+  steps through ``repro_torch.launch.serve.generate``.
+
+Phases, one JSON line each:
+
+  env         torch / CUDA versions, the card, its power limit
+  build       nvcc of ``src/repro_torch/csrc/{forest,ssd}.cu``, both started
+              together, and their -Xptxas -v lines
+  fit         the forests, fitted on the host
+  kernel      the forest kernel against its plain torch version (``ref.py``)
+              on the same CUDA tensors, depth {2,5,8,10} x batch
+              {1,7,64,328,4096}, rtol 1e-5 / atol 1e-6, bitwise repeatable
+  serve       ForestEngine on the card (backend "hopper"): batched predict,
+              a burst of async singles, cache hits, a hot-swap, then
+              MultiDeviceEngine pricing and scheduling; answers held to the
+              plain CPU dense path; launch counter read around the run
+  timing      forest kernel, plain-version and engine times at B = 64 / 328 /
+              4096, beside the least time the card could take (the bound)
+  ssd_kernel  the SSD kernel against its plain version (``ssd_chunked``) on
+              the same CUDA tensors at 80 heads of 64, state 64: (Bsz, S) in
+              {(1,1), (1,100), (1,500), (4,512), (2,2048)}, f32 and bf16, one
+              case with h0, one with B/C strided as the model passes them;
+              bitwise repeatable
+  lm_serve    zamba2-2.7b: generate() on the card, its SSD launches counted
+              (54 per prefill), then every layer's SSD call held in place to
+              the plain version in bf16 and in f32, and the whole f32
+              prefill's logits and caches to the plain chunked path
+              (use_pallas=False)
+  lm_timing   prefill and decode times of the served model; the SSD kernel
+              at the serving shape beside its plain version and its bound
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and ``{"ok": true, "device": {...}}`` last. Any
 failed check raises and the script exits non-zero; without a CUDA device it
-exits non-zero before printing any result. The kernel builds into
+exits non-zero before printing any result. The kernels build into
 ``build/kernels/``.
 """
 from __future__ import annotations
@@ -34,6 +54,8 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -45,10 +67,37 @@ DEPTHS = (2, 5, 8, 10)
 BATCHES = (1, 7, 64, 328, 4096)
 TIMED_BATCHES = (64, 328, 4096)
 RTOL, ATOL = 1e-5, 1e-6
-# NVIDIA's H100 SXM data sheet: the HBM rate, and the fp32 rate outside the
-# tensor cores (which the compare/index/add work runs at)
+# NVIDIA's H100 SXM data sheet: the HBM rate, the fp32 rate outside the
+# tensor cores (which the forest's compare/index/add work runs at), and the
+# dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+# the LM serving path
+LM_ARCH = "zamba2-2.7b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 32
+SSD_CASES = ((1, 1), (1, 100), (1, 500), (4, 512), (2, 2048))
+SSD_H, SSD_P, SSD_N = 80, 64, 64
+SSD_F32_TOL = dict(rtol=2e-4, atol=2e-4)      # the reference's own
+# bf16 inputs: both sides compute in f32 from the same bf16 values and round
+# y to bf16 once, after sums taken in other orders, so y may differ by one
+# bf16 ulp (2^-7 relative at most); h stays f32 and keeps the f32 tolerance
+SSD_BF16_Y_TOL = dict(rtol=2 ** -7, atol=1e-3)
+# prefill held to the plain chunked path, as shares of the largest value of
+# each tensor. (1) In place, at each of the 54 layers: the kernel's y and h
+# against the plain version's on the same inputs. The two take the cumsum of
+# the log-decay in other orders; over a chunk it reaches a few hundred,
+# where a float32 ulp is 1e-5-3e-5, and exp() carries that into y and h, so
+# 1e-3; a bf16 y may also round one ulp apart (2^-7 of the largest value).
+# (2) The whole f32 prefill over 54 layers: logits and every cache. With
+# these random weights a difference grows about 1.6x per group of 6 layers,
+# so two correct orders of the same sums end apart; the limit lies between
+# that drift and where a broken scan lands, both measured by
+# ``python -m repro_torch.launch.scan_drift`` (PERF.md). The whole bf16
+# prefill is not held: there two correct orders no longer agree at all.
+LM_LAYER_REL = {"bfloat16": (2 ** -7, 1e-3), "float32": (1e-3, 1e-3)}
+LM_F32_REL = 0.1
 
 
 def emit(phase: str, **fields) -> None:
@@ -125,6 +174,274 @@ def bound(x, feature, threshold, depth: int) -> tuple[float, str, dict]:
     return max(t_bytes, t_ops), by, {"bytes": n_bytes, "ops": n_ops}
 
 
+def profile_breakdown(fn, find: str, top: int = 8) -> dict:
+    """One synchronised call of ``fn()`` under torch.profiler: host wall
+    ms, the sum of the device's kernel times, the device's busy share of
+    the wall time, the number of kernels, the kernels whose name holds
+    ``find`` (their device ms, launches and share of the wall time), and
+    the ``top`` kernels by device time. Only device events are summed: an
+    aten op's self device time is its kernels' time again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(a.key, a.count, a.self_device_time_total / 1e3)
+            for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[2])
+    device_ms = sum(r[2] for r in rows)
+    found = [r for r in rows if find in r[0]]
+    found_ms = sum(r[2] for r in found)
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms,
+            "kernels": sum(r[1] for r in rows),
+            find: {"ms": found_ms, "count": sum(r[1] for r in found),
+                   "share_of_wall": found_ms / wall_ms},
+            "top": [{"name": k[:90], "count": c, "ms": m}
+                    for k, c, m in rows[:top]]}
+
+
+def ssd_inputs(dev, B: int, S: int, dtype, seed: int, strided: bool = False):
+    """x (B,S,H,P), alog (B,S,H) f32 < 0, B/C (B,S,N) scaled so that C.B
+    stays O(1) at N = 64. ``strided``: B and C are the last 2N columns of
+    one (B, S, H*P + 2N) tensor, the strides the model passes them with
+    (its conv output (x, B, C))."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = randn(B, S, SSD_H, SSD_P).to(dtype)
+    alog = -randn(B, S, SSD_H).abs() * 0.3
+    if strided:
+        di = SSD_H * SSD_P
+        xbc = (randn(B, S, di + 2 * SSD_N) * SSD_N ** -0.25).to(dtype)
+        return x, alog, xbc[..., di:di + SSD_N], xbc[..., di + SSD_N:]
+    Bm = (randn(B, S, SSD_N) * SSD_N ** -0.25).to(dtype)
+    Cm = (randn(B, S, SSD_N) * SSD_N ** -0.25).to(dtype)
+    return x, alog, Bm, Cm
+
+
+def ssd_bound(x, alog, B, C, chunk: int) -> tuple[float, str, dict]:
+    """Least time for one SSD scan on these inputs: the larger of (x, alog,
+    B, C read once, y and h written once, over the HBM rate) and (the
+    chunked form's products over the peak rate for the inputs' type: bf16
+    tensor cores, or fp32). The products: C.B^T, 2L^2N once per batch and
+    chunk (B and C are shared across heads), then 2L^2P + 4LNP per chunk
+    and head."""
+    import torch
+    Bsz, S, H, P = x.shape
+    N = B.shape[-1]
+    es = x.element_size()
+    n_bytes = (2 * x.numel() + B.numel() + C.numel()) * es \
+        + alog.numel() * 4 + Bsz * H * N * P * 4
+    L = chunk
+    n_ops = Bsz * -(-S // L) * (2 * L * L * N
+                                + H * (2 * L * L * P + 4 * L * N * P))
+    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / rate * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, {"bytes": n_bytes, "ops": n_ops}
+
+
+def ssd_kernel_phase(dev) -> dict:
+    """The SSD kernel against its plain version on the same CUDA tensors."""
+    import torch
+    from repro_torch.kernels.mamba import ops as sops
+    from repro_torch.kernels.mamba.ref import ssd_chunked
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [(B, S, dtype, False, False) for B, S in SSD_CASES]
+        cases += [(2, 300, dtype, True, False), (4, 512, dtype, False, True)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    results = []
+    for i, (B, S, dtype, with_h0, strided) in enumerate(cases):
+        x, alog, Bm, Cm = ssd_inputs(dev, B, S, dtype, seed=i, strided=strided)
+        h0 = None
+        if with_h0:
+            h0 = torch.randn((B, SSD_H, SSD_N, SSD_P), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(99))
+        y, h = sops.ssd_scan(x, alog, Bm, Cm, h0=h0)
+        y2, h2 = sops.ssd_scan(x, alog, Bm, Cm, h0=h0)
+        yp, hp = ssd_chunked(x, alog, Bm, Cm, h0=h0,
+                             chunk=min(128, -(-S // 8) * 8))
+        torch.cuda.synchronize()
+        tol = SSD_F32_TOL if dtype == torch.float32 else SSD_BF16_Y_TOL
+        what = f"B={B} S={S} {dtype} h0={with_h0} strided={strided}"
+        torch.testing.assert_close(y.float(), yp.float(), **tol, msg=what)
+        torch.testing.assert_close(h, hp, **SSD_F32_TOL, msg=what)
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            raise AssertionError(f"SSD kernel not repeatable at {what}")
+        ey = float((y.float() - yp.float()).abs().max())
+        eh = float((h - hp).abs().max())
+        worst[dtype] = max(worst[dtype], ey, eh)
+        results.append({"B": B, "S": S, "dtype": str(dtype).split(".")[-1],
+                        "h0": with_h0, "strided": strided, "y_err": ey,
+                        "h_err": eh, "y_max": float(yp.float().abs().max())})
+    emit("ssd_kernel", cases=len(results), heads=SSD_H, head_dim=SSD_P,
+         state=SSD_N, f32_tol=SSD_F32_TOL, bf16_y_tol=SSD_BF16_Y_TOL,
+         max_abs_err=worst[torch.float32],
+         max_abs_err_bf16=worst[torch.bfloat16], results=results)
+    return {"max_abs_err": worst[torch.float32],
+            "max_abs_err_bf16": worst[torch.bfloat16]}
+
+
+def lm_serve_phase(dev) -> dict:
+    """zamba2-2.7b at full width on the card: generate() with its SSD
+    launches counted, then prefill held to the plain chunked path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.mamba import ops as sops
+    from repro_torch.kernels.mamba.ref import ssd_chunked
+    from repro_torch.launch.scan_drift import apart, prefill_with, rel_err
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model = build_model(replace(cfg, use_pallas=True))
+    params = model.init(seed=0, device=dev)
+    batch = model.make_batch(ShapeConfig("serve", LM_PROMPT, LM_BATCH,
+                                         "prefill"), seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    sops.launches = 0                         # count the main path's launches
+    t0 = time.perf_counter()
+    tokens, times = generate(model, params, batch, LM_GEN)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = sops.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{launches} SSD kernel launches for one prefill "
+                             f"of {cfg.n_layers} Mamba layers")
+    if (tuple(tokens.shape) != (LM_BATCH, LM_GEN) or len(times) != LM_GEN
+            or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab):
+        raise AssertionError(f"bad generation: {tuple(tokens.shape)}")
+
+    # prefill through the kernel, held to the plain chunked path on the card
+    kernel_scan = sops.ssd_scan
+    layers = []
+
+    def checked(x, alog, B, C, *, chunk=128, h0=None):
+        """The kernel, and beside it the plain version on the same inputs:
+        every Mamba layer's SSD call held in place."""
+        y, h = kernel_scan(x, alog, B, C, chunk=chunk, h0=h0)
+        yp, hp = ssd_chunked(x, alog, B, C, h0=h0,
+                             chunk=min(chunk, -(-x.shape[1] // 8) * 8))
+        layers.append((rel_err(y, yp), rel_err(h, hp)))
+        return y, h
+
+    checks, failures = {}, []
+    for dtype in ("bfloat16", "float32"):
+        c = replace(cfg, dtype=dtype)
+        layers.clear()
+        before = sops.launches
+        kern = prefill_with(build_model(replace(c, use_pallas=True)), params,
+                            batch, checked)
+        torch.cuda.synchronize()
+        if sops.launches - before != cfg.n_layers or len(layers) != cfg.n_layers:
+            raise AssertionError(f"{sops.launches - before} kernel launches "
+                                 f"in the {dtype} prefill")
+        if not bool(torch.isfinite(kern[0]).all()):
+            raise AssertionError(f"non-finite {dtype} prefill logits")
+        y_lim, h_lim = LM_LAYER_REL[dtype]
+        worst_y = max(e[0] for e in layers)
+        worst_h = max(e[1] for e in layers)
+        if not (worst_y <= y_lim and worst_h <= h_lim):
+            failures.append(f"{dtype}: a layer's SSD output is {worst_y} "
+                            f"(y) / {worst_h} (h) of its largest value off the "
+                            f"plain version's, limits {y_lim} / {h_lim}")
+        checks[dtype] = {"layers_y": [e[0] for e in layers],
+                         "layers_h": [e[1] for e in layers],
+                         "worst_layer_y": worst_y, "worst_layer_h": worst_h,
+                         "layer_limits": [y_lim, h_lim]}
+        if dtype == "float32":
+            plain = build_model(replace(c, use_pallas=False)).prefill(params,
+                                                                     batch)
+            whole = apart(kern, plain)
+            bad = {k: v for k, v in whole.items() if not v <= LM_F32_REL}
+            if bad:
+                failures.append(f"float32 prefill {bad} of the largest value "
+                                f"off the plain path's, limit {LM_F32_REL}")
+            checks[dtype].update(whole_prefill=whole, whole_limit=LM_F32_REL)
+            del plain
+        del kern
+    emit("lm_serve", arch=LM_ARCH, params=model.n_params(),
+         layers=cfg.n_layers, d_model=cfg.d_model, batch=LM_BATCH,
+         prompt=LM_PROMPT, generated=LM_GEN, init_s=init_s, serve_s=serve_s,
+         ssd_launches=launches, ssd_launches_per_prefill=launches,
+         tokens_head=tokens[0, :8].tolist(), vs_plain=checks)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"model": model, "params": params, "batch": batch, "times": times,
+            "launches": launches}
+
+
+def lm_timing_phase(dev, served: dict, smi: str) -> dict:
+    """Prefill and decode times of the served model; the SSD kernel at the
+    serving shape (bf16 x, B/C strided as the model passes them)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.mamba import ops as sops
+    from repro_torch.kernels.mamba.ref import ssd_chunked
+    from repro_torch.launch.serve import place_prefill_caches
+
+    model, params, batch = served["model"], served["params"], served["batch"]
+    pre = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, batch)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+    prefill_ms = float(np.median(pre)) * 1e3
+    decode_ms = float(np.median(served["times"])) * 1e3
+    # where the time goes: one prefill and one decode step, traced
+    prefill_trace = profile_breakdown(lambda: model.prefill(params, batch),
+                                      "ssd_chunk_kernel")
+    _, caches = model.prefill(params, batch)
+    caches = place_prefill_caches(model, caches, LM_PROMPT + 1)
+    step = {"tokens": batch["tokens"][:, -1:], "pos": LM_PROMPT}
+    decode_trace = profile_breakdown(
+        lambda: model.decode(params, step, caches), "ssd_chunk_kernel")
+    del caches
+
+    x, alog, Bm, Cm = ssd_inputs(dev, LM_BATCH, LM_PROMPT, torch.bfloat16,
+                                 seed=7, strided=True)
+
+    def launch():
+        return sops.ssd_scan(x, alog, Bm, Cm)
+    k_ms = cuda_ms(launch, iters=50, warmup=5)
+    d_ms = kernel_device_ms(launch, "ssd_chunk_kernel", iters=20)
+    p_ms = cuda_ms(lambda: ssd_chunked(x, alog, Bm, Cm, chunk=128), iters=10,
+                   warmup=2)
+    b_ms, b_by, work = ssd_bound(x, alog, Bm, Cm, chunk=128)
+    out = {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+           "bound_by": b_by, **work, "library_ms": None,
+           "shape": {"Bsz": LM_BATCH, "S": LM_PROMPT, "H": SSD_H, "P": SSD_P,
+                     "N": SSD_N, "dtype": "bfloat16", "chunk": 128}}
+    emit("lm_timing", arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT,
+         prefill_ms=prefill_ms, prefill_runs_ms=[t * 1e3 for t in pre],
+         decode_ms_median=decode_ms,
+         decode_ms_all=[t * 1e3 for t in served["times"]],
+         decode_tokens_per_s=LM_BATCH / decode_ms * 1e3,
+         ssd_launches_per_prefill=served["launches"],
+         ssd_share_of_prefill=prefill_trace["ssd_chunk_kernel"][
+             "share_of_wall"],
+         ssd=out, prefill_trace=prefill_trace, decode_trace=decode_trace,
+         card=smi)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -141,10 +458,15 @@ def main() -> int:
     from repro_torch.core.scheduler import schedule
     from repro_torch.kernels.forest import kernel as fk
     from repro_torch.kernels.forest import ops
+    from repro_torch.kernels.mamba import kernel as sk
     from repro_torch.kernels.forest.ref import forest_predict_ref
     from repro_torch.serve import ForestEngine, MultiDeviceEngine
 
     dev = torch.device("cuda")
+    # float32 products in full float32 on the card (no TF32), for the plain
+    # versions the kernels are held to
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
@@ -152,12 +474,16 @@ def main() -> int:
 
     # ------------------------------------------------------------- build
     t0 = time.perf_counter()
-    info = fk.build()
-    ptxas = [ln.strip() for ln in info.log.splitlines()
-             if any(k in ln for k in ("registers", "spill", "smem",
-                                      "Compiling entry", "bytes stack"))]
+    with ThreadPoolExecutor(2) as pool:       # one nvcc per source, at once
+        infos = list(pool.map(lambda m: m.build(), (fk, sk)))
+
+    def ptxas(info):
+        return [ln.strip() for ln in info.log.splitlines()
+                if any(k in ln for k in ("registers", "spill", "smem",
+                                         "Compiling entry", "bytes stack"))]
     emit("build", seconds=time.perf_counter() - t0,
-         command=" ".join(info.command), ptxas=ptxas,
+         commands=[" ".join(i.command) for i in infos],
+         ptxas={i.library.stem: ptxas(i) for i in infos},
          tree_stride=fk.TREE_STRIDE)
 
     # --------------------------------------------------------------- fit
@@ -335,6 +661,11 @@ def main() -> int:
                        "library_ms": None, "tile_rows": fk.tile_rows(B)})
         emit("timing", **timing[-1], depth=DEPTH, trees=N_TREES, card=smi)
 
+    # ---------------------------------------------------- the LM path
+    ssd = ssd_kernel_phase(dev)
+    served = lm_serve_phase(dev)
+    lm = lm_timing_phase(dev, served, smi)
+
     main_b = next(t for t in timing if t["B"] == X.shape[0])
     print(json.dumps({"kernels": [{
         "name": "forest_predict_f32", "route": "cuda",
@@ -345,7 +676,16 @@ def main() -> int:
         "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
         "library_ms": None, "batch": main_b["B"], "depth": DEPTH,
-        "trees": N_TREES}]}), flush=True)
+        "trees": N_TREES}, {
+        "name": "ssd_scan_bf16", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/mamba/kernel.py:30",
+        "launches": served["launches"], "max_abs_err": ssd["max_abs_err"],
+        "max_abs_err_bf16": ssd["max_abs_err_bf16"],
+        "ms": lm["ms"], "device_ms": lm["device_ms"],
+        "plain_ms": lm["plain_ms"], "bound_ms": lm["bound_ms"],
+        "bound_by": lm["bound_by"], "library_ms": None,
+        "shape": lm["shape"]}]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ imports JAX); ``features`` holds the feature definitions only.
 ``forest_torch`` and ``latency`` are the torch counterparts of
 ``forest_jax`` and ``latency``; ``convert`` carries a fitted forest across
 from the reference."""
-from .convert import dense_from_arrays, estimator_from_arrays
+from .convert import (dense_from_arrays, estimator_from_arrays,
+                      lm_params_from_arrays)
 from .dataset import Dataset, Sample
 from .devices import DEVICE_MODELS, SIMULATED_DEVICES, DeviceModel
 from .features import FEATURE_NAMES, N_FEATURES, FeatureVector, LaunchConfig

@@ -1,16 +1,19 @@
-"""Carry a fitted forest across from the reference.
+"""Carry weights across from the reference.
 
-For this system the weights are the fitted forest. The reference keeps each
-tree as seven numpy arrays (``repro.core.forest.Tree``: feature, threshold,
-left, right, value, n_samples, impurity) and a dense forest as three tables;
-these functions rebuild the port's objects from such arrays, checking shapes
-and types, so a forest fitted by either package serves through the other.
+For the predictor the weights are the fitted forest. The reference keeps
+each tree as seven numpy arrays (``repro.core.forest.Tree``: feature,
+threshold, left, right, value, n_samples, impurity) and a dense forest as
+three tables; these functions rebuild the port's objects from such arrays,
+checking shapes and types, so a forest fitted by either package serves
+through the other. ``lm_params_from_arrays`` does the same for the LM
+framework's parameter trees.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping, Sequence
 
 import numpy as np
+import torch
 
 from .forest import ExtraTreesRegressor, Tree
 from .forest_torch import DenseForest
@@ -51,6 +54,35 @@ def estimator_from_arrays(trees: Sequence[Mapping], n_features: int,
     est.trees_ = [_tree(t, n_features) for t in trees]
     est.n_features_ = int(n_features)
     return est
+
+
+def lm_params_from_arrays(specs: Mapping, arrays: Mapping,
+                          device="cuda") -> dict:
+    """The port's LM parameters from the reference's parameter tree.
+
+    ``specs`` is a model's ``ParamSpec`` tree (``ModelBundle.specs``);
+    ``arrays`` is the reference's parameter pytree with the same names and
+    the same stacked leading axes, its leaves as numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, params)``). Returns a nested dict of tensors
+    on ``device`` in each spec's dtype. Every leaf's shape is checked against
+    its spec; a missing or extra leaf raises."""
+    def walk(spec, arr, path):
+        where = "/".join(path) or "<root>"
+        if isinstance(spec, Mapping):
+            if not isinstance(arr, Mapping):
+                raise ValueError(f"{where}: expected a mapping, got "
+                                 f"{type(arr).__name__}")
+            missing, extra = set(spec) - set(arr), set(arr) - set(spec)
+            if missing or extra:
+                raise ValueError(f"{where}: missing {sorted(missing)}, "
+                                 f"extra {sorted(extra)}")
+            return {k: walk(spec[k], arr[k], path + (k,)) for k in spec}
+        a = np.asarray(arr)
+        if tuple(a.shape) != tuple(spec.shape):
+            raise ValueError(f"{where}: shape {tuple(a.shape)}, the spec "
+                             f"says {tuple(spec.shape)}")
+        return torch.as_tensor(np.array(a, dtype=spec.dtype), device=device)
+    return walk(specs, arrays, ())
 
 
 def dense_from_arrays(feature, threshold, value, depth: int,

@@ -8,5 +8,9 @@ takes).
 
   forest/    dense-forest inference (the paper's prediction-latency hot
              spot, §7.1); replaces the reference's Pallas ``_forest_kernel``
+  mamba/     chunked SSD scan (Mamba2 prefill in the LM framework);
+             replaces the reference's Pallas ``_ssd_kernel``
+
+``_build.py`` compiles each ``csrc/*.cu`` with ``nvcc`` and loads it.
 """
-from . import forest  # noqa: F401
+from . import forest, mamba  # noqa: F401

@@ -1,116 +1,54 @@
-"""Build and bind the Hopper forest-inference kernel (``csrc/forest.cu``).
+"""Bind the Hopper forest-inference kernel (``csrc/forest.cu``).
 
 The CUDA source has a plain C entry point, compiled with ``nvcc`` into a
-shared library at first use and loaded with ``ctypes``:
+shared library at first use and loaded with ``ctypes`` (``kernels/_build.py``,
+shared with the port's other kernels):
 
     int forest_predict_f32(x, feature, threshold, value, out,
                            B, F, T, N, depth, stream)
 
-The library goes to ``build/kernels/`` at the root of the checkout, named by
-a hash of the source and the flags, so an edited source builds anew and an
-unchanged one is built once per checkout. A failed build raises. Nothing
-here runs when the module is imported: the CPU tests import it on hosts
-without ``nvcc``.
+Nothing here runs when the module is imported: the CPU tests import it on
+hosts without ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "forest.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from .. import _build
+from .._build import Build
+
+SOURCE = _build.CSRC / "forest.cu"
 
 #: Trees one block strides over; ``forest_tree_stride()`` in the source
 #: must agree (checked at load).
 TREE_STRIDE = 192
 
 
-@dataclass(frozen=True)
-class Build:
-    library: Path
-    command: tuple[str, ...]
-    log: str                      # nvcc's output, with the -Xptxas -v lines
-
-
-_lock = threading.Lock()
-_build: Build | None = None
-_lib: ctypes.CDLL | None = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the forest kernel cannot be built "
-                       "(put nvcc on PATH or set CUDA_HOME)")
-
-
 def build() -> Build:
     """Compile ``csrc/forest.cu`` unless this source and these flags were
     already built in this checkout. Returns the library, the command and
     nvcc's log."""
-    global _build
-    with _lock:
-        if _build is not None:
-            return _build
-        digest = hashlib.sha256(
-            SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib = BUILD_DIR / f"forest_{digest}.so"
-        log_path = lib.with_suffix(".log")
-        nvcc = _nvcc()
+    return _build.build(SOURCE)
 
-        def command(out: Path) -> tuple[str, ...]:
-            return (nvcc, *NVCC_FLAGS, "-o", str(out), str(SOURCE))
-        if not lib.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # nvcc names the output's kind by its suffix: keep ".so"
-            tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp.so"
-            proc = subprocess.run(command(tmp), capture_output=True,
-                                  text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                                   f"{' '.join(command(tmp))}\n{log}")
-            log_path.write_text(log)
-            tmp.replace(lib)
-        log = log_path.read_text() if log_path.exists() else ""
-        _build = Build(library=lib, command=command(lib), log=log)
-        return _build
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.forest_predict_f32.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.forest_predict_f32.restype = ctypes.c_int
+    lib.forest_tree_stride.argtypes = []
+    lib.forest_tree_stride.restype = ctypes.c_int
+    lib.forest_tile_rows.argtypes = [ctypes.c_int]
+    lib.forest_tile_rows.restype = ctypes.c_int
+    stride = lib.forest_tree_stride()
+    if stride != TREE_STRIDE:
+        raise RuntimeError(f"{lib._name} strides over {stride} trees, the "
+                           f"wrapper expects {TREE_STRIDE}")
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    info = build()
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(info.library))
-            lib.forest_predict_f32.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-            lib.forest_predict_f32.restype = ctypes.c_int
-            lib.forest_tree_stride.argtypes = []
-            lib.forest_tree_stride.restype = ctypes.c_int
-            lib.forest_tile_rows.argtypes = [ctypes.c_int]
-            lib.forest_tile_rows.restype = ctypes.c_int
-            stride = lib.forest_tree_stride()
-            if stride != TREE_STRIDE:
-                raise RuntimeError(f"{info.library} strides over {stride} "
-                                   f"trees, the wrapper expects {TREE_STRIDE}")
-            _lib = lib
-        return _lib
+    return _build.load(SOURCE, _bind)
 
 
 def tile_rows(batch: int) -> int:

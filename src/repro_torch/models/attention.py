@@ -1,0 +1,133 @@
+"""GQA attention with RoPE and a KV cache: the serving half of
+``repro.models.attention``.
+
+  * ``attend_prefill`` — causal self-attention; returns the K/V it computed
+  * ``attend_decode``  — 1-token step against a fixed-size cache, written in
+    place
+
+The reference computes serving attention with jnp einsums outside any Pallas
+kernel (its flash kernel is reached only by ``attend_train``), so this is
+plain torch: products of operands in the activation dtype, accumulated in
+float32, and a float32 softmax, as the reference's ``_sdpa_block``. The
+products of two bf16 values are exact in float32, so the operands are
+widened to float32 and multiplied there; the port keeps float32 matmuls off
+TF32 (torch's default for matmuls). ``attend_train`` (kernel B2),
+``attend_cross`` and ``cross_kv`` come with their slices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .common import EMBED, HEAD_DIM, HEADS, KV_HEADS, ParamSpec, apply_rope
+
+
+def attn_specs(cfg) -> dict:
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    specs = {
+        "wq": ParamSpec((d, H, Dh), (EMBED, HEADS, HEAD_DIM)),
+        "wk": ParamSpec((d, Hkv, Dh), (EMBED, KV_HEADS, HEAD_DIM)),
+        "wv": ParamSpec((d, Hkv, Dh), (EMBED, KV_HEADS, HEAD_DIM)),
+        "wo": ParamSpec((H, Dh, d), (HEADS, HEAD_DIM, EMBED)),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((H, Dh), (HEADS, HEAD_DIM), init="zeros")
+        specs["bk"] = ParamSpec((Hkv, Dh), (KV_HEADS, HEAD_DIM), init="zeros")
+        specs["bv"] = ParamSpec((Hkv, Dh), (KV_HEADS, HEAD_DIM), init="zeros")
+    return specs
+
+
+def _proj(x, w):
+    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
+    d, H, Dh = w.shape
+    return (x @ w.reshape(d, H * Dh).to(x.dtype)).reshape(*x.shape[:2], H, Dh)
+
+
+def _qkv(cfg, p, x):
+    dt = x.dtype
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return q, k, v
+
+
+def _out(o, wo):
+    """einsum("bshk,hkd->bsd")."""
+    H, Dh, d = wo.shape
+    return o.reshape(*o.shape[:2], H * Dh) @ wo.reshape(H * Dh, d).to(o.dtype)
+
+
+Q_CHUNK = 512   # query-chunked attention: caps the f32 score buffer at
+                # (B, Hkv, g, Q_CHUNK, Skv) instead of the full S^2
+
+
+def _sdpa_block(qg, k, v, *, causal: bool, q_offset: int, kv_valid_len,
+                scale: float):
+    """qg (B,qc,Hkv,g,Dh); k/v (B,Skv,Hkv,Dh), all in the compute dtype.
+    Products accumulate in f32; softmax and masking in f32."""
+    Skv = k.shape[1]
+    qc = qg.shape[1]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    if causal:
+        qi = torch.arange(qc, device=s.device)[:, None] + q_offset
+        ki = torch.arange(Skv, device=s.device)[None, :]
+        s = torch.where(qi >= ki, s, -1e30)
+    if kv_valid_len is not None:
+        ki = torch.arange(Skv, device=s.device)
+        s = torch.where(ki < kv_valid_len, s, -1e30)
+    pr = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", pr.to(v.dtype).float(), v.float())
+
+
+def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_valid_len=None):
+    """q (B,Sq,H,Dh); k/v (B,Skv,Hkv,Dh). Grouped attention; queries
+    processed in chunks of Q_CHUNK (exact: softmax is per query over the
+    full key range) so the score buffer never holds S^2."""
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    # the reference's f32 scale: 1/sqrt(Dh) rounded to float32
+    scale = float(torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32))
+    qg = q.reshape(B, Sq, Hkv, g, Dh).to(k.dtype)
+    if Sq <= Q_CHUNK or Sq % Q_CHUNK != 0:
+        o = _sdpa_block(qg, k, v, causal=causal, q_offset=q_offset,
+                        kv_valid_len=kv_valid_len, scale=scale)
+    else:
+        o = torch.cat([
+            _sdpa_block(qg[:, i:i + Q_CHUNK], k, v, causal=causal,
+                        q_offset=q_offset + i, kv_valid_len=kv_valid_len,
+                        scale=scale)
+            for i in range(0, Sq, Q_CHUNK)], dim=1)
+    return o.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def attend_prefill(cfg, p, x, cos, sin):
+    """Returns (out, (k, v)): the K/V of these S positions, in the
+    activation dtype."""
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = _sdpa(q, k, v, causal=True)
+    return _out(o, p["wo"]), (k, v)
+
+
+def attend_decode(cfg, p, x, cos, sin, cache, pos: int):
+    """x (B,1,d); cache (k, v) each (B,Smax,Hkv,Dh); pos: the position of
+    this token. Writes its K/V into the cache at ``pos`` IN PLACE (the
+    reference returns an updated copy) and returns (out, cache)."""
+    k_cache, v_cache = cache
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    o = _sdpa(q, k_cache, v_cache, causal=False, kv_valid_len=pos + 1)
+    return _out(o, p["wo"]), (k_cache, v_cache)
+
+
+def kv_cache_shape(cfg, batch: int, max_len: int):
+    Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    return (batch, max_len, Hkv, Dh)

@@ -1,0 +1,151 @@
+"""Shared model machinery: parameter specs with logical sharding axes,
+initialization, norms, rotary embeddings (the port of
+``repro.models.common``).
+
+Parameters are declared once as ``ParamSpec`` trees (nested dicts of shape
++ logical axes + init); ``init_params`` materializes them as a nested dict
+of tensors with the same names. The logical axes are kept as data for the
+sharding rules of a later slice.
+"""
+from __future__ import annotations
+
+import hashlib
+import math
+from dataclasses import dataclass
+
+import torch
+
+from ..core.forest_torch import resolve_device
+
+# ---------------------------------------------------------------- param specs
+
+# logical axis vocabulary (the reference's sharding/rules.py maps them)
+BATCH, SEQ, EMBED, MLP, HEADS, KV_HEADS, HEAD_DIM, VOCAB, EXPERT = (
+    "batch", "seq", "embed", "mlp", "heads", "kv_heads", "head_dim",
+    "vocab", "expert")
+LAYERS, INNER, STATE, CONV, LORA = "layers", "inner", "state", "conv", "lora"
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple
+    axes: tuple                    # logical axis per dim (None = replicated)
+    init: str = "normal"           # normal | zeros | ones | embed
+    scale: float | None = None     # None -> 1/sqrt(fan_in)
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             f"differ in rank")
+
+
+def tree_map(fn, tree, path: tuple = ()):
+    """Apply ``fn(path, leaf)`` to every ``ParamSpec`` (or tensor) leaf of a
+    nested dict; ``path`` is the tuple of keys down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def leaves(tree) -> list:
+    """The leaves of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in leaves(v)]
+    return [tree]
+
+
+def _leaf_seed(seed: int, path: tuple) -> int:
+    """Per-leaf seed from the same md5 of the path as the reference's
+    ``_leaf_key``, so a leaf's numbers stay put under refactors that keep
+    its name. The seed enters the low 32 bits too: the CPU generator reads
+    only those."""
+    h = int.from_bytes(hashlib.md5("/".join(path).encode()).digest()[:4],
+                       "little")
+    return (h + int(seed) * 0x9E3779B97F4A7C15) % 2 ** 64
+
+
+def init_params(specs, seed: int, device: str | torch.device = "cuda"):
+    """Materialize a ParamSpec tree on ``device``. Each leaf draws from its
+    own ``torch.Generator`` on that device, seeded from ``seed`` and the
+    md5 of its path. The numbers differ from ``jax.random``'s; the scales,
+    zeros and ones are the reference's. A CUDA device must exist."""
+    device = resolve_device(device)
+
+    def make(path, spec: ParamSpec):
+        dt = getattr(torch, spec.dtype)
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dt, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dt, device=device)
+        fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
+        if spec.init == "embed":
+            scale = spec.scale if spec.scale is not None else 1.0
+        else:
+            scale = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(_leaf_seed(seed, path))
+        out = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                          device=device)
+        return (out * scale).to(dt)
+
+    return tree_map(make, specs)
+
+
+def logical_axes(specs):
+    """Tree of logical-axes tuples, same structure as the params."""
+    return tree_map(lambda _, s: s.axes, specs)
+
+
+def stack_specs(specs, n: int, axis_name: str = LAYERS):
+    """Prepend a layer axis to every leaf (stacked-layer storage)."""
+    return tree_map(lambda _, s: ParamSpec((n,) + s.shape, (axis_name,) + s.axes,
+                                           s.init, s.scale, s.dtype), specs)
+
+
+def index(tree, i: int):
+    """Leaf ``i`` along the leading (stacked) axis of every tensor in a
+    nested dict: views, no copies."""
+    return tree_map(lambda _, t: t[i], tree)
+
+
+# ------------------------------------------------------------------- numerics
+
+def rms_norm(x, w, eps: float = 1e-5):
+    """In float32, cast to x's dtype, and only then scaled by w."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+def softplus(x):
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------- rope
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """positions: (..., S) int -> cos/sin (..., S, head_dim/2) float32."""
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, D); cos/sin: (B, S, D/2) (broadcast over heads).
+    Half-rotation (llama-style)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)

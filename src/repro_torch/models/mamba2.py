@@ -1,0 +1,116 @@
+"""Mamba2 block (SSD): gated selective state space with conv1d frontend (the
+port of ``repro.models.mamba2``).
+
+Layout follows the Mamba2 paper: in_proj emits (z, x, B, C, dt); a causal
+depthwise conv1d(width=ssm_conv) over the (x, B, C) channels; the SSD
+recurrence h_t = exp(dt*A) h_{t-1} + dt*B_t x_t with per-head scalar A; gated
+output norm and out_proj.
+
+Sequence mixing outside decode, as in the reference:
+  * ``cfg.use_pallas``: ``kernels.mamba.ssd_scan``, which on a CUDA tensor
+    is the hand-written Hopper kernel (``csrc/ssd.cu``);
+  * otherwise the plain chunked SSD (``kernels.mamba.ref.ssd_chunked``).
+Decode is the O(1) recurrence against (conv_state, ssm_state) caches, in
+plain torch (the reference has no kernel there).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.mamba import ops
+from ..kernels.mamba.ref import ssd_chunked
+from .common import CONV, EMBED, HEADS, INNER, ParamSpec, rms_norm, silu, softplus
+
+
+def mamba_specs(cfg) -> dict:
+    d = cfg.d_model
+    di = cfg.d_inner
+    N = cfg.ssm_state
+    H = cfg.n_ssm_heads
+    W = cfg.ssm_conv
+    conv_ch = di + 2 * N
+    return {
+        "in_proj": ParamSpec((d, 2 * di + 2 * N + H), (EMBED, INNER)),
+        "conv_w": ParamSpec((W, conv_ch), (CONV, INNER), scale=0.5),
+        "conv_b": ParamSpec((conv_ch,), (INNER,), init="zeros"),
+        "a_log": ParamSpec((H,), (HEADS,), init="zeros"),       # A = -exp(a_log)
+        "dt_bias": ParamSpec((H,), (HEADS,), init="zeros"),
+        "d_skip": ParamSpec((H,), (HEADS,), init="ones"),
+        "out_norm": ParamSpec((di,), (INNER,), init="ones"),
+        "out_proj": ParamSpec((di, d), (INNER, EMBED)),
+    }
+
+
+def _split_proj(cfg, proj):
+    di, N = cfg.d_inner, cfg.ssm_state
+    z = proj[..., :di]
+    xbc = proj[..., di:di + di + 2 * N]
+    dt = proj[..., di + di + 2 * N:]
+    return z, xbc, dt
+
+
+def _causal_conv(p, xbc, conv_state=None):
+    """Depthwise causal conv over time. xbc (B, S, C).
+    With conv_state (B, W-1, C) supplied, runs the streaming update. Returns
+    (out, new_state): the last W-1 inputs, the next call's state."""
+    W = p["conv_w"].shape[0]
+    dt = xbc.dtype
+    if conv_state is None:
+        pad = xbc.new_zeros(xbc.shape[:1] + (W - 1,) + xbc.shape[2:])
+    else:
+        pad = conv_state.to(dt)
+    full = torch.cat([pad, xbc], dim=1)                         # (B, S+W-1, C)
+    S = xbc.shape[1]
+    out = sum(full[:, i:i + S] * p["conv_w"][i].to(dt) for i in range(W))
+    out = silu(out + p["conv_b"].to(dt))
+    new_state = full[:, -(W - 1):] if W > 1 else torch.zeros_like(pad)
+    return out, new_state
+
+
+def mamba_mix(cfg, p, u, ssm_state=None, conv_state=None, *, decode=False):
+    """u: (B, S, d). Returns (out, (conv_state, ssm_state))."""
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    P = cfg.ssm_head_dim
+    dtp = u.dtype
+    proj = u @ p["in_proj"].to(dtp)                             # (B,S,2di+2N+H)
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+    xbc, new_conv = _causal_conv(p, xbc, conv_state if decode else None)
+    x = xbc[..., :di]
+    Bm = xbc[..., di:di + N]
+    Cm = xbc[..., di + N:]
+    dt = softplus(dt_raw.float() + p["dt_bias"].float())
+    A = -torch.exp(p["a_log"].float())                          # (H,)
+    alog = dt * A                                                # (B,S,H)
+    Bsz, S = x.shape[:2]
+    xh = x.reshape(Bsz, S, H, P)
+    # dt scales the input (discretization): x_t <- dt_t * x_t
+    xin = xh * dt[..., None].to(dtp)
+
+    if decode:
+        if S != 1:
+            raise ValueError(f"decode takes one token per call, got {S}")
+        h0 = ssm_state.float()                                  # (B,H,N,P)
+        a = torch.exp(alog[:, 0])                               # (B,H)
+        h = a[:, :, None, None] * h0 + torch.einsum(
+            "bn,bhp->bhnp", Bm[:, 0].float(), xin[:, 0].float())
+        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h)
+        y = y[:, None].to(dtp)                                  # (B,1,H,P)
+        new_ssm = h
+    elif cfg.use_pallas:
+        y, new_ssm = ops.ssd_scan(xin, alog, Bm, Cm, h0=ssm_state)
+    else:
+        y, new_ssm = ssd_chunked(xin, alog, Bm, Cm, h0=ssm_state,
+                                 chunk=min(128, S))
+
+    y = y + xh * p["d_skip"].to(dtp)[None, None, :, None]
+    y = y.reshape(Bsz, S, di)
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps) * silu(z)
+    out = y @ p["out_proj"].to(dtp)
+    return out, (new_conv, new_ssm)
+
+
+def mamba_cache_shapes(cfg, batch: int):
+    di, N = cfg.d_inner, cfg.ssm_state
+    H, P = cfg.n_ssm_heads, cfg.ssm_head_dim
+    W = cfg.ssm_conv
+    return dict(conv=(batch, W - 1, di + 2 * N), ssm=(batch, H, N, P))
