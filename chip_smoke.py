@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths on the card at full width:
+Drives the port's serving and training paths on the card at full width:
 
 * the paper's predictor behind ``ForestEngine`` and ``MultiDeviceEngine``:
   512-tree extra-trees forests fitted on the committed 82-kernel x 4-size
@@ -12,35 +12,57 @@ Drives the port's two serving paths on the card at full width:
 * the LM framework's zamba2-2.7b (54 Mamba2 layers, d_model 2560, the
   shared attention block every 6 layers; random weights from a seeded
   ``torch.Generator``) serving 4 prompts of 512 tokens and 32 greedy decode
-  steps through ``repro_torch.launch.serve.generate``.
+  steps through ``repro_torch.launch.serve.generate``;
+* the same model trained through ``repro_torch.launch.train``: 4 AdamW
+  steps of 4 x 1024 tokens in 2 microbatches, bf16 activations over f32
+  parameters and moments, activation checkpointing as configured.
 
 Phases, one JSON line each:
 
-  env         torch / CUDA versions, the card, its power limit
-  build       nvcc of ``src/repro_torch/csrc/{forest,ssd}.cu``, both started
-              together, and their -Xptxas -v lines
-  fit         the forests, fitted on the host
-  kernel      the forest kernel against its plain torch version (``ref.py``)
-              on the same CUDA tensors, depth {2,5,8,10} x batch
-              {1,7,64,328,4096}, rtol 1e-5 / atol 1e-6, bitwise repeatable
-  serve       ForestEngine on the card (backend "hopper"): batched predict,
-              a burst of async singles, cache hits, a hot-swap, then
-              MultiDeviceEngine pricing and scheduling; answers held to the
-              plain CPU dense path; launch counter read around the run
-  timing      forest kernel, plain-version and engine times at B = 64 / 328 /
-              4096, beside the least time the card could take (the bound)
-  ssd_kernel  the SSD kernel against its plain version (``ssd_chunked``) on
-              the same CUDA tensors at 80 heads of 64, state 64: (Bsz, S) in
-              {(1,1), (1,100), (1,500), (4,512), (2,2048)}, f32 and bf16, one
-              case with h0, one with B/C strided as the model passes them;
-              bitwise repeatable
-  lm_serve    zamba2-2.7b: generate() on the card, its SSD launches counted
-              (54 per prefill), then every layer's SSD call held in place to
-              the plain version in bf16 and in f32, and the whole f32
-              prefill's logits and caches to the plain chunked path
-              (use_pallas=False)
-  lm_timing   prefill and decode times of the served model; the SSD kernel
-              at the serving shape beside its plain version and its bound
+  env          torch / CUDA versions, the card, its power limit
+  build        nvcc of ``src/repro_torch/csrc/{forest,ssd,flash_attn}.cu``,
+               all started together, and their -Xptxas -v lines
+  fit          the forests, fitted on the host
+  kernel       the forest kernel against its plain torch version (``ref.py``)
+               on the same CUDA tensors, depth {2,5,8,10} x batch
+               {1,7,64,328,4096}, rtol 1e-5 / atol 1e-6, bitwise repeatable
+  serve        ForestEngine on the card (backend "hopper"): batched predict,
+               a burst of async singles, cache hits, a hot-swap, then
+               MultiDeviceEngine pricing and scheduling; answers held to the
+               plain CPU dense path; launch counter read around the run
+  timing       forest kernel, plain-version and engine times at B = 64 / 328 /
+               4096, beside the least time the card could take (the bound)
+  ssd_kernel   the SSD kernel against its plain version (``ssd_chunked``) on
+               the same CUDA tensors at 80 heads of 64, state 64: (Bsz, S) in
+               {(1,1), (1,100), (1,500), (4,512), (2,2048)}, f32 and bf16, one
+               case with h0, one with B/C strided as the model passes them;
+               bitwise repeatable
+  lm_serve     zamba2-2.7b: generate() on the card, its SSD launches counted
+               (54 per prefill), then every layer's SSD call held in place to
+               the plain version in bf16 and in f32 (``kernels.watch``), and
+               the whole f32 prefill's logits and caches to the plain chunked
+               path (use_pallas=False)
+  lm_timing    prefill and decode times of the served model; the SSD kernel
+               at the serving shape beside its plain version and its bound
+  flash_kernel the flash-attention kernel against its plain version
+               (``attention_ref``) on the same CUDA tensors: the reference's
+               five test shapes and its bf16 case, zamba2's training shape,
+               the model's (B, S, H, D) strides, masked keys and rows that
+               see none, f32 and bf16; bitwise repeatable; the
+               autograd.Function's gradients against the plain version's
+  lm_train     zamba2-2.7b trained through ``launch.train.main``: both
+               kernels' launches counted against the count the code implies
+               (36 attention and 324 SSD launches per step), the loss finite
+               at every step; one more step with every kernel call held in
+               place to its plain version
+  train_timing step time and tokens/s; one traced step (the card's busy
+               share, the largest kernels); the flash kernel at the training
+               shape beside its plain version, its bound and SDPA (timed as a
+               yardstick only)
+  lm_train_f32 one whole f32 step (batch 1 x 512) through the kernels: loss
+               and gradient norm beside the plain path, a second correct
+               order and two broken kernels (reported; PERF.md says why no
+               limit holds them)
 
 then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and ``{"ok": true, "device": {...}}`` last. Any
@@ -98,6 +120,39 @@ SSD_BF16_Y_TOL = dict(rtol=2 ** -7, atol=1e-3)
 # prefill is not held: there two correct orders no longer agree at all.
 LM_LAYER_REL = {"bfloat16": (2 ** -7, 1e-3), "float32": (1e-3, 1e-3)}
 LM_F32_REL = 0.1
+
+# the flash-attention kernel: the reference's five shapes and its bf16 case
+# (tests/test_kernels.py), zamba2's training shape (one microbatch of 2 x
+# 1024 tokens, 32 heads of 80), at the reference's tolerances
+FLASH_CASES = ((2, 4, 2, 64, 64, 32, True), (1, 2, 2, 33, 33, 16, True),
+               (2, 8, 2, 17, 40, 8, False), (1, 4, 1, 128, 128, 64, True),
+               (1, 2, 1, 16, 48, 8, True))
+FLASH_BF16_CASE = (1, 2, 2, 32, 32, 16, True)
+FLASH_TRAIN = (2, 32, 32, 1024, 1024, 80, True)
+FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
+             "bfloat16": dict(rtol=0.08, atol=0.08)}
+
+# the LM training path: zamba2-2.7b at full width through launch/train.py,
+# global batch 4 x 1024 in the config's 2 microbatches, 1 warm-up step and
+# 3 timed steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 4
+# in place, every kernel call of one step beside its plain version on the
+# same inputs, as shares of the largest value: both compute in f32 from the
+# same bf16 values and round the output to bf16 once, so one bf16 ulp
+# (2^-7 of the largest value); the SSD state h stays f32 (1e-3, as in
+# serving)
+TRAIN_CALL_REL = {"flash_attention": (2 ** -7,), "ssd_scan": (2 ** -7, 1e-3)}
+# one whole f32 step (batch 1 x 512) through the kernels, beside the plain
+# path: loss and gradient norm. Reported, not held to a limit: under
+# PERF.md's rule (3x the largest correct reading, kept only if every broken
+# kernel lands 5x above it) the attention fault landed 2.2x above on an
+# H100, so the whole step cannot tell it from a correct kernel and the
+# in-place checks carry correctness
+TRAIN_F32_BATCH, TRAIN_F32_SEQ = 1, 512
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 def emit(phase: str, **fields) -> None:
@@ -174,13 +229,13 @@ def bound(x, feature, threshold, depth: int) -> tuple[float, str, dict]:
     return max(t_bytes, t_ops), by, {"bytes": n_bytes, "ops": n_ops}
 
 
-def profile_breakdown(fn, find: str, top: int = 8) -> dict:
+def profile_breakdown(fn, *find: str, top: int = 8) -> dict:
     """One synchronised call of ``fn()`` under torch.profiler: host wall
     ms, the sum of the device's kernel times, the device's busy share of
-    the wall time, the number of kernels, the kernels whose name holds
-    ``find`` (their device ms, launches and share of the wall time), and
-    the ``top`` kernels by device time. Only device events are summed: an
-    aten op's self device time is its kernels' time again."""
+    the wall time, the number of kernels, for each name in ``find`` the
+    kernels whose name holds it (their device ms, launches and share of the
+    wall time), and the ``top`` kernels by device time. Only device events
+    are summed: an aten op's self device time is its kernels' time again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -196,15 +251,17 @@ def profile_breakdown(fn, find: str, top: int = 8) -> dict:
             if a.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows)
-    found = [r for r in rows if find in r[0]]
-    found_ms = sum(r[2] for r in found)
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "busy_share": device_ms / wall_ms,
-            "kernels": sum(r[1] for r in rows),
-            find: {"ms": found_ms, "count": sum(r[1] for r in found),
-                   "share_of_wall": found_ms / wall_ms},
-            "top": [{"name": k[:90], "count": c, "ms": m}
-                    for k, c, m in rows[:top]]}
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "busy_share": device_ms / wall_ms,
+           "kernels": sum(r[1] for r in rows)}
+    for name in find:
+        found = [r for r in rows if name in r[0]]
+        found_ms = sum(r[2] for r in found)
+        out[name] = {"ms": found_ms, "count": sum(r[1] for r in found),
+                     "share_of_wall": found_ms / wall_ms}
+    out["top"] = [{"name": k[:90], "count": c, "ms": m}
+                  for k, c, m in rows[:top]]
+    return out
 
 
 def ssd_inputs(dev, B: int, S: int, dtype, seed: int, strided: bool = False):
@@ -293,15 +350,153 @@ def ssd_kernel_phase(dev) -> dict:
             "max_abs_err_bf16": worst[torch.bfloat16]}
 
 
+def flash_inputs(dev, B, Hq, Hkv, Sq, Skv, D, dtype, seed: int,
+                 model_layout: bool = False):
+    """q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D) from a seeded generator.
+    ``model_layout``: transposed views of (B, S, H, D) tensors, the strides
+    ``attend_train`` passes them with."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(b, h, s, d):
+        if model_layout:
+            return torch.randn((b, s, h, d), generator=gen, device=dev).to(
+                dtype).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+    return randn(B, Hq, Sq, D), randn(B, Hkv, Skv, D), randn(B, Hkv, Skv, D)
+
+
+def flash_bound(q, k, kv_len: int | None = None,
+                kv_offset: int | None = None,
+                causal: bool = True) -> tuple[float, str, dict]:
+    """Least time for one attention call on these inputs: the larger of (q,
+    k, v read once, o written once, over the HBM rate) and (the products
+    of the (query, key) pairs the masks leave, 4 D operations each, over
+    the peak rate for the inputs' type: bf16 tensor cores, or fp32)."""
+    import torch
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
+    kv_len = Skv if kv_len is None else kv_len
+    kv_offset = Skv - Sq if kv_offset is None else kv_offset
+    rows = torch.arange(Sq)
+    seen = (torch.clamp(torch.clamp(rows + kv_offset + 1, max=kv_len), min=0)
+            if causal else torch.full((Sq,), kv_len))
+    pairs = int(seen.sum())
+    n_ops = 4 * B * Hq * pairs * D
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / rate * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, {"bytes": n_bytes, "ops": n_ops}
+
+
+def flash_kernel_phase(dev) -> dict:
+    """The flash-attention kernel against its plain version on the same
+    CUDA tensors: the reference's five test shapes and its bf16 case,
+    zamba2's training shape, the model's (B, S, H, D) strides, rows that
+    see no key, keys masked past kv_len; bitwise repeatable; the
+    autograd.Function's gradients against autograd of the plain version."""
+    import torch
+    from repro_torch.kernels.attention import ops as fops
+    from repro_torch.kernels.attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.attention.ref import attention_ref
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [(*shape, dtype, False) for shape in FLASH_CASES]
+        cases += [(*FLASH_TRAIN, dtype, False), (*FLASH_TRAIN, dtype, True)]
+    cases.append((*FLASH_BF16_CASE, torch.bfloat16, False))
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    results = []
+    for i, (B, Hq, Hkv, Sq, Skv, D, causal, dtype, strided) in enumerate(cases):
+        q, k, v = flash_inputs(dev, B, Hq, Hkv, Sq, Skv, D, dtype, seed=i,
+                               model_layout=strided)
+        o = fops.flash_attention(q, k, v, causal=causal)
+        o2 = fops.flash_attention(q, k, v, causal=causal)
+        plain = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        what = f"{(B, Hq, Hkv, Sq, Skv, D, causal)} {dtype} strided={strided}"
+        if o.stride() != q.stride():
+            raise AssertionError(f"output not laid out as q at {what}")
+        torch.testing.assert_close(o.float(), plain.float(),
+                                   **FLASH_TOL[dtype_name(dtype)], msg=what)
+        if not torch.equal(o, o2):
+            raise AssertionError(f"flash kernel not repeatable at {what}")
+        err = float((o.float() - plain.float()).abs().max())
+        worst[dtype] = max(worst[dtype], err)
+        results.append({"shape": [B, Hq, Hkv, Sq, Skv, D], "causal": causal,
+                        "dtype": dtype_name(dtype),
+                        "strided": strided, "max_abs_err": err})
+    # keys masked past kv_len, and rows that see no key (kv_offset < 0)
+    q, k, v = flash_inputs(dev, 2, 4, 2, 96, 80, 64, torch.float32, seed=50)
+    for kv_len, kv_offset in ((53, 27), (80, -40), (0, 0)):
+        o = flash_attention_kernel(q, k, v, causal=True, kv_len=kv_len,
+                                   kv_offset=kv_offset)
+        plain = attention_ref(q, k, v, causal=True, kv_len=kv_len,
+                              kv_offset=kv_offset)
+        torch.testing.assert_close(o, plain, **FLASH_TOL["float32"],
+                                   msg=f"kv_len={kv_len} offset={kv_offset}")
+        if kv_offset < 0 and bool(o[:, :, :-kv_offset].any()):
+            raise AssertionError("a row that sees no key is not 0")
+    # gradients: the Function's backward (the plain version recomputed)
+    # against autograd of the plain version; the same operations on the same
+    # inputs, so they should agree to the bit
+    grads_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.detach().requires_grad_() for t in flash_inputs(
+            dev, 2, 8, 4, 200, 200, 80, dtype, seed=60, model_layout=True))
+        g = torch.randn(q.shape, device=dev).to(dtype)
+        got = torch.autograd.grad(fops.flash_attention(q, k, v), (q, k, v), g)
+        want = torch.autograd.grad(attention_ref(q, k, v), (q, k, v), g)
+        for name, a, b in zip("qkv", got, want):
+            torch.testing.assert_close(a, b, **FLASH_TOL[dtype_name(dtype)],
+                                       msg=f"d{name} {dtype}")
+        grads_err[dtype_name(dtype)] = max(
+            float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    emit("flash_kernel", cases=len(results), tol=FLASH_TOL,
+         max_abs_err=worst[torch.float32],
+         max_abs_err_bf16=worst[torch.bfloat16], grads_max_err=grads_err,
+         results=results)
+    return {"max_abs_err": worst[torch.float32],
+            "max_abs_err_bf16": worst[torch.bfloat16]}
+
+
+def inplace_check(records: dict):
+    """A watcher for ``repro_torch.kernels.watch``: each kernel call's
+    output beside its plain version's on the same inputs, as shares of
+    the largest value, appended to ``records[name]`` (y and h for the SSD
+    scan, o for attention). Its plain versions run inside the call, so the
+    launch counters do not see them."""
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.mamba.ref import ssd_chunked
+    from repro_torch.launch.scan_drift import rel_err
+
+    def check(name, inputs, output):
+        i = inputs
+        if name == "ssd_scan":
+            yp, hp = ssd_chunked(i["x"], i["alog"], i["B"], i["C"],
+                                 h0=i["h0"], chunk=i["chunk"])
+            records.setdefault(name, []).append(
+                (rel_err(output[0], yp), rel_err(output[1], hp)))
+        elif name == "flash_attention":
+            op = attention_ref(i["q"], i["k"], i["v"], causal=i["causal"],
+                               sm_scale=i["sm_scale"])
+            records.setdefault(name, []).append((rel_err(output, op),))
+        else:
+            raise AssertionError(f"no plain version for {name}")
+    return check
+
+
 def lm_serve_phase(dev) -> dict:
     """zamba2-2.7b at full width on the card: generate() with its SSD
     launches counted, then prefill held to the plain chunked path."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.attention import ops as fops
     from repro_torch.kernels.mamba import ops as sops
-    from repro_torch.kernels.mamba.ref import ssd_chunked
-    from repro_torch.launch.scan_drift import apart, prefill_with, rel_err
+    from repro_torch.kernels.watch import watching
+    from repro_torch.launch.scan_drift import apart
     from repro_torch.launch.serve import generate
     from repro_torch.models.registry import build_model
 
@@ -314,40 +509,32 @@ def lm_serve_phase(dev) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
 
-    sops.launches = 0                         # count the main path's launches
+    sops.launches = fops.launches = 0         # count the main path's launches
     t0 = time.perf_counter()
     tokens, times = generate(model, params, batch, LM_GEN)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = sops.launches
-    if launches != cfg.n_layers:
-        raise AssertionError(f"{launches} SSD kernel launches for one prefill "
-                             f"of {cfg.n_layers} Mamba layers")
+    if launches != cfg.n_layers or fops.launches:
+        raise AssertionError(f"{launches} SSD and {fops.launches} attention "
+                             f"kernel launches for one prefill of "
+                             f"{cfg.n_layers} Mamba layers")
     if (tuple(tokens.shape) != (LM_BATCH, LM_GEN) or len(times) != LM_GEN
             or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab):
         raise AssertionError(f"bad generation: {tuple(tokens.shape)}")
 
-    # prefill through the kernel, held to the plain chunked path on the card
-    kernel_scan = sops.ssd_scan
-    layers = []
-
-    def checked(x, alog, B, C, *, chunk=128, h0=None):
-        """The kernel, and beside it the plain version on the same inputs:
-        every Mamba layer's SSD call held in place."""
-        y, h = kernel_scan(x, alog, B, C, chunk=chunk, h0=h0)
-        yp, hp = ssd_chunked(x, alog, B, C, h0=h0,
-                             chunk=min(chunk, -(-x.shape[1] // 8) * 8))
-        layers.append((rel_err(y, yp), rel_err(h, hp)))
-        return y, h
-
+    # prefill through the kernel, every Mamba layer's SSD call held in place
+    # to the plain chunked path on the card
     checks, failures = {}, []
     for dtype in ("bfloat16", "float32"):
         c = replace(cfg, dtype=dtype)
-        layers.clear()
+        records = {}
         before = sops.launches
-        kern = prefill_with(build_model(replace(c, use_pallas=True)), params,
-                            batch, checked)
+        with watching(inplace_check(records)):
+            kern = build_model(replace(c, use_pallas=True)).prefill(params,
+                                                                    batch)
         torch.cuda.synchronize()
+        layers = records.get("ssd_scan", [])
         if sops.launches - before != cfg.n_layers or len(layers) != cfg.n_layers:
             raise AssertionError(f"{sops.launches - before} kernel launches "
                                  f"in the {dtype} prefill")
@@ -442,6 +629,208 @@ def lm_timing_phase(dev, served: dict, smi: str) -> dict:
     return out
 
 
+def train_launches_per_step(cfg) -> dict:
+    """Kernel launches of one training step, from the code: each of the
+    config's microbatches runs the model forward once and, under the nested
+    remat of ``models/zamba.py``, runs each group body again in the
+    backward pass (its shared-block attention: twice in all; its Mamba
+    layers: twice) and each Mamba layer once more inside that (three times
+    in all). The backward passes recompute the plain versions, launching
+    nothing."""
+    groups = cfg.n_layers // cfg.shared_attn_every
+    attn, ssd = ((2 * groups, 3 * cfg.n_layers) if cfg.remat
+                 else (groups, cfg.n_layers))
+    return {"flash_attention": attn * cfg.microbatches,
+            "ssd_scan": ssd * cfg.microbatches}
+
+
+def lm_train_phase(dev) -> dict:
+    """zamba2-2.7b trained at full width on the card through the
+    launcher's entry point (``launch.train.main``): kernel launches
+    counted, the loss finite at every step; then one more step with every
+    kernel call held in place to its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.attention import ops as fops
+    from repro_torch.kernels.mamba import ops as sops
+    from repro_torch.kernels.watch import watching
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import make_train_step
+
+    cfg = replace(get_config(LM_ARCH), use_pallas=True)
+    per_step = train_launches_per_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--microbatches",
+            str(cfg.microbatches), "--seed", "0", "--device", str(dev)]
+    sops.launches = fops.launches = 0         # count the main path's launches
+    t0 = time.perf_counter()
+    out = train_main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"flash_attention": fops.launches, "ssd_scan": sops.launches}
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{launches} kernel launches in {TRAIN_STEPS} "
+                             f"training steps, expected {want}")
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"training losses {losses}")
+    step_s = [t for _, t in out["monitor"].history]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # one more step, every kernel call held in place to its plain version
+    state = out["state"]
+    del out
+    model = build_model(cfg)
+    step = make_train_step(model, OptConfig(lr=3e-3, total_steps=TRAIN_STEPS,
+                                            warmup_steps=5),
+                           n_microbatches=cfg.microbatches)
+    gen = SyntheticLM(cfg.vocab, seed=0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             gen.batch(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ).items()}
+    records = {}
+    with watching(inplace_check(records)):
+        state, metrics = step(state, batch)
+    calls = {k: len(v) for k, v in records.items()}
+    if calls != per_step:
+        raise AssertionError(f"{calls} kernel calls in the checked step, "
+                             f"expected {per_step}")
+    worst = {k: [max(e[j] for e in v) for j in range(len(v[0]))]
+             for k, v in records.items()}
+    bad = {k: (w, TRAIN_CALL_REL[k]) for k, w in worst.items()
+           if any(a > b for a, b in zip(w, TRAIN_CALL_REL[k]))}
+    if bad or not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"in-place checks off their plain versions "
+                             f"(worst, limits): {bad}; loss "
+                             f"{float(metrics['loss'])}")
+    emit("lm_train", arch=LM_ARCH, params=model.n_params(),
+         layers=cfg.n_layers, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         microbatches=cfg.microbatches, steps=TRAIN_STEPS, run_s=run_s,
+         losses=losses, step_s=step_s, peak_memory_gb=peak_gb,
+         launches=launches, launches_per_step=per_step,
+         checked_step_loss=float(metrics["loss"]), checked_calls=calls,
+         worst_call_rel=worst, call_limits=TRAIN_CALL_REL)
+    return {"state": state, "batch": batch, "step": step,
+            "step_s": step_s, "launches": launches, "per_step": per_step}
+
+
+def lm_train_f32_phase(dev) -> dict:
+    """One whole f32 step (loss and gradient norm) of the full-width model
+    through the kernels, beside the plain path (``use_pallas=False``), a
+    second correct order (the SSD kernel's output replaced by its plain
+    version in chunks of 64) and two broken kernels (the SSD without its
+    carry across chunks, attention without its causal mask), all on the
+    same parameters and tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.watch import watching
+    from repro_torch.launch.scan_drift import SCANS
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = replace(get_config(LM_ARCH), dtype="float32")
+    params = build_model(cfg).init(0, dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        cfg.vocab, seed=0).batch(0, TRAIN_F32_BATCH, TRAIN_F32_SEQ).items()}
+
+    def run(use_pallas: bool, swap=None) -> tuple[float, float]:
+        model = build_model(replace(cfg, use_pallas=use_pallas))
+
+        def watcher(name, inputs, output):
+            return swap(name, inputs) if swap else None
+        with watching(watcher):
+            loss, grads = loss_and_grads(model, params, batch)
+        return float(loss), float(global_norm(dict(enumerate(grads))))
+
+    def ssd_swap(scan):
+        def swap(name, inputs):
+            return scan(**inputs) if name == "ssd_scan" else None
+        return swap
+
+    def non_causal(name, inputs):
+        if name != "flash_attention":
+            return None
+        return attention_ref(inputs["q"], inputs["k"], inputs["v"],
+                             causal=False, sm_scale=inputs["sm_scale"])
+
+    plain = run(False)
+    readings = {
+        "kernels": run(True),
+        "ssd_plain_chunk64": run(True, ssd_swap(SCANS["plain_chunk64"])),
+        "fault_ssd_no_carry": run(True, ssd_swap(SCANS["fault_no_carry"])),
+        "fault_attention_not_causal": run(True, non_causal),
+    }
+    apart = {k: {"loss": abs(v[0] - plain[0]) / abs(plain[0]),
+                 "grad_norm": abs(v[1] - plain[1]) / abs(plain[1])}
+             for k, v in readings.items()}
+    emit("lm_train_f32", arch=LM_ARCH, batch=TRAIN_F32_BATCH,
+         seq=TRAIN_F32_SEQ, plain={"loss": plain[0], "grad_norm": plain[1]},
+         readings={k: {"loss": v[0], "grad_norm": v[1]}
+                   for k, v in readings.items()},
+         apart_from_plain=apart)
+    if not all(np.isfinite(v).all() for v in (plain, *readings.values())):
+        raise AssertionError(f"non-finite f32 step: {readings}, plain {plain}")
+    return apart
+
+
+def train_timing_phase(dev, trained: dict, smi: str) -> dict:
+    """Step time and tokens/s of the training run; one traced step; the
+    flash-attention kernel at the training shape beside its plain version,
+    its bound and SDPA (timed as the yardstick only)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.attention import ops as fops
+    from repro_torch.kernels.attention.ref import attention_ref
+
+    warmup_s, timed = trained["step_s"][0], trained["step_s"][1:]
+    step_ms = float(np.median(timed)) * 1e3
+    trace = profile_breakdown(
+        lambda: trained["step"](trained["state"], trained["batch"]),
+        "ssd_chunk_kernel", "flash_fwd_kernel", top=12)
+    trained.clear()                            # free the training state
+    torch.cuda.empty_cache()
+
+    q, k, v = flash_inputs(dev, *FLASH_TRAIN[:6], torch.bfloat16, seed=7,
+                           model_layout=True)
+
+    def launch():
+        return fops.flash_attention(q, k, v, causal=True)
+    k_ms = cuda_ms(launch, iters=30, warmup=3)
+    d_ms = kernel_device_ms(launch, "flash_fwd_kernel", iters=10)
+    p_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), iters=5,
+                   warmup=1)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True), iters=30, warmup=3)
+    b_ms, b_by, work = flash_bound(q, k)
+    flash = {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+             "bound_ms": b_ms, "bound_by": b_by, **work, "library_ms": lib_ms,
+             "shape": {"B": FLASH_TRAIN[0], "Hq": FLASH_TRAIN[1],
+                       "Hkv": FLASH_TRAIN[2], "Sq": FLASH_TRAIN[3],
+                       "Skv": FLASH_TRAIN[4], "D": FLASH_TRAIN[5],
+                       "causal": True, "dtype": "bfloat16",
+                       "layout": "(B, S, H, D) transposed"}}
+    emit("train_timing", arch=LM_ARCH, global_batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, step_ms_median=step_ms,
+         step_ms_timed=[t * 1e3 for t in timed],
+         step_ms_warmup=warmup_s * 1e3,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+         ssd_share_of_step=trace["ssd_chunk_kernel"]["ms"] / step_ms,
+         flash_share_of_step=trace["flash_fwd_kernel"]["ms"] / step_ms,
+         step_trace=trace, flash=flash,
+         card=smi)
+    return flash
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -456,6 +845,7 @@ def main() -> int:
     from repro_torch.core.forest import ExtraTreesRegressor
     from repro_torch.core.forest_torch import DenseForestTorch, to_dense
     from repro_torch.core.scheduler import schedule
+    from repro_torch.kernels.attention import kernel as ak
     from repro_torch.kernels.forest import kernel as fk
     from repro_torch.kernels.forest import ops
     from repro_torch.kernels.mamba import kernel as sk
@@ -474,8 +864,8 @@ def main() -> int:
 
     # ------------------------------------------------------------- build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:       # one nvcc per source, at once
-        infos = list(pool.map(lambda m: m.build(), (fk, sk)))
+    with ThreadPoolExecutor(3) as pool:       # one nvcc per source, at once
+        infos = list(pool.map(lambda m: m.build(), (fk, sk, ak)))
 
     def ptxas(info):
         return [ln.strip() for ln in info.log.splitlines()
@@ -665,6 +1055,16 @@ def main() -> int:
     ssd = ssd_kernel_phase(dev)
     served = lm_serve_phase(dev)
     lm = lm_timing_phase(dev, served, smi)
+    serve_launches = served["launches"]
+    del served                                # free the served model
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- the training path
+    flash = flash_kernel_phase(dev)
+    trained = lm_train_phase(dev)
+    train_launches, per_step = trained["launches"], trained["per_step"]
+    flash_t = train_timing_phase(dev, trained, smi)
+    lm_train_f32_phase(dev)
 
     main_b = next(t for t in timing if t["B"] == X.shape[0])
     print(json.dumps({"kernels": [{
@@ -680,12 +1080,26 @@ def main() -> int:
         "name": "ssd_scan_bf16", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/mamba/kernel.py:30",
-        "launches": served["launches"], "max_abs_err": ssd["max_abs_err"],
+        "launches": serve_launches, "max_abs_err": ssd["max_abs_err"],
         "max_abs_err_bf16": ssd["max_abs_err_bf16"],
         "ms": lm["ms"], "device_ms": lm["device_ms"],
         "plain_ms": lm["plain_ms"], "bound_ms": lm["bound_ms"],
         "bound_by": lm["bound_by"], "library_ms": None,
-        "shape": lm["shape"]}]}), flush=True)
+        "shape": lm["shape"],
+        "train_launches": train_launches["ssd_scan"],
+        "train_launches_per_step": per_step["ssd_scan"]}, {
+        "name": "flash_attention_bf16", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:22",
+        "launches": train_launches["flash_attention"],
+        "launches_per_step": per_step["flash_attention"],
+        "max_abs_err": flash["max_abs_err"],
+        "max_abs_err_bf16": flash["max_abs_err_bf16"],
+        "ms": flash_t["ms"], "device_ms": flash_t["device_ms"],
+        "plain_ms": flash_t["plain_ms"], "bound_ms": flash_t["bound_ms"],
+        "bound_by": flash_t["bound_by"],
+        "library_ms": flash_t["library_ms"],
+        "shape": flash_t["shape"]}]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ threshold, left, right, value, n_samples, impurity) and a dense forest as
 three tables; these functions rebuild the port's objects from such arrays,
 checking shapes and types, so a forest fitted by either package serves
 through the other. ``lm_params_from_arrays`` does the same for the LM
-framework's parameter trees.
+framework's parameter trees, ``train_state_from_arrays`` for a training
+state (params and AdamW moments), and ``tree_to_arrays`` takes a port tree
+back to numpy.
 """
 from __future__ import annotations
 
@@ -83,6 +85,42 @@ def lm_params_from_arrays(specs: Mapping, arrays: Mapping,
                              f"says {tuple(spec.shape)}")
         return torch.as_tensor(np.array(a, dtype=spec.dtype), device=device)
     return walk(specs, arrays, ())
+
+
+def train_state_from_arrays(specs: Mapping, arrays: Mapping, device="cuda",
+                            moment_dtype: str = "float32") -> dict:
+    """The port's train state from the reference's (``repro.train.step``):
+    {"params": tree, "opt": {"m": tree, "v": tree, "step": int}} with numpy
+    (or array-like) leaves. Params and v come out in their specs' dtype, m
+    in ``moment_dtype``, step as an int32 scalar tensor; every tree is
+    checked as ``lm_params_from_arrays`` checks it."""
+    if set(arrays) != {"params", "opt"} or set(arrays["opt"]) != {
+            "m", "v", "step"}:
+        raise ValueError("expected {'params', 'opt': {'m', 'v', 'step'}}")
+    opt = arrays["opt"]
+    mdt = getattr(torch, moment_dtype)
+    m = lm_params_from_arrays(specs, opt["m"], device)
+    return {"params": lm_params_from_arrays(specs, arrays["params"], device),
+            "opt": {"m": _cast(m, mdt),
+                    "v": lm_params_from_arrays(specs, opt["v"], device),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=device)}}
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, Mapping):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def tree_to_arrays(tree):
+    """A nested dict of tensors as numpy arrays on the host (float32 for
+    bfloat16, which numpy lacks), e.g. to compare a port state with the
+    reference's."""
+    if isinstance(tree, Mapping):
+        return {k: tree_to_arrays(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def dense_from_arrays(feature, threshold, value, depth: int,

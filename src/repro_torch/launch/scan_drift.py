@@ -5,7 +5,8 @@
 
 One prefill of ``--batch`` prompts of ``--prompt-len`` tokens (random
 weights and tokens from seed 0) runs with each scan below in place of
-``kernels.mamba.ops.ssd_scan``, in bf16 and in f32. For each, the script
+``kernels.mamba.ops.ssd_scan`` (its output replaced through
+``kernels.watch``), in bf16 and in f32. For each, the script
 prints how far its logits and caches end from the plain chunked path's
 (``use_pallas=False``, chunks of 128), as shares of each tensor's largest
 value:
@@ -31,11 +32,11 @@ from dataclasses import replace
 import torch
 import torch.nn.functional as F
 
-from ..kernels.mamba import ops
 from ..kernels.mamba.ref import ssd_chunked
+from ..kernels.watch import watching
 
 
-def _no_carry(x, alog, B, C, *, chunk=128, h0=None):
+def _no_carry(x, alog, B, C, *, chunk, h0=None):
     ys, h = [], h0
     for s in range(0, x.shape[1], chunk):
         part = slice(s, s + chunk)
@@ -45,12 +46,12 @@ def _no_carry(x, alog, B, C, *, chunk=128, h0=None):
     return torch.cat(ys, dim=1), h
 
 
-def _shift(x, alog, B, C, *, chunk=128, h0=None):
+def _shift(x, alog, B, C, *, chunk, h0=None):
     late = F.pad(alog, (0, 0, 1, 0))[:, :-1]
     return ssd_chunked(x, late, B, C, h0=h0, chunk=chunk)
 
 
-def _plain64(x, alog, B, C, *, chunk=128, h0=None):
+def _plain64(x, alog, B, C, *, chunk, h0=None):
     return ssd_chunked(x, alog, B, C, h0=h0, chunk=64)
 
 
@@ -74,16 +75,18 @@ def apart(a, b) -> dict:
 
 
 def prefill_with(model, params, batch, scan=None):
-    """``model.prefill`` with ``scan`` as ``ops.ssd_scan`` (None: as is).
-    ``model`` must be built with ``use_pallas=True``."""
+    """``model.prefill`` with every ``ops.ssd_scan`` call's output replaced
+    by ``scan``'s on the same inputs (None: as served). ``model`` must be
+    built with ``use_pallas=True``."""
     if scan is None:
         return model.prefill(params, batch)
-    served = ops.ssd_scan
-    ops.ssd_scan = scan
-    try:
+
+    def swap(name, inputs, output):
+        if name == "ssd_scan":
+            return scan(**inputs)
+        return None
+    with watching(swap):
         return model.prefill(params, batch)
-    finally:
-        ops.ssd_scan = served
 
 
 def drift(cfg, params, batch, dtypes=("bfloat16", "float32")) -> dict:

@@ -1,18 +1,20 @@
-"""GQA attention with RoPE and a KV cache: the serving half of
-``repro.models.attention``.
+"""GQA attention with RoPE and a KV cache (the port of
+``repro.models.attention``):
 
+  * ``attend_train``   — causal self-attention, no cache; kernel B2 behind
+    ``cfg.use_pallas``
   * ``attend_prefill`` — causal self-attention; returns the K/V it computed
   * ``attend_decode``  — 1-token step against a fixed-size cache, written in
     place
 
 The reference computes serving attention with jnp einsums outside any Pallas
-kernel (its flash kernel is reached only by ``attend_train``), so this is
-plain torch: products of operands in the activation dtype, accumulated in
+kernel (its flash kernel is reached only by ``attend_train``), so ``_sdpa``
+is plain torch: products of operands in the activation dtype, accumulated in
 float32, and a float32 softmax, as the reference's ``_sdpa_block``. The
 products of two bf16 values are exact in float32, so the operands are
 widened to float32 and multiplied there; the port keeps float32 matmuls off
-TF32 (torch's default for matmuls). ``attend_train`` (kernel B2),
-``attend_cross`` and ``cross_kv`` come with their slices.
+TF32 (torch's default for matmuls). ``attend_cross`` and ``cross_kv`` come
+with the encoder-decoder slice.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import math
 
 import torch
 
+from ..kernels.attention import flash_attention
 from .common import EMBED, HEAD_DIM, HEADS, KV_HEADS, ParamSpec, apply_rope
 
 
@@ -102,6 +105,22 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_valid_len=None):
                         scale=scale)
             for i in range(0, Sq, Q_CHUNK)], dim=1)
     return o.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def attend_train(cfg, p, x, cos, sin):
+    """Causal self-attention over the whole sequence, no cache. With
+    ``cfg.use_pallas`` the attention is kernel B2 (``flash_attention``, the
+    Hopper kernel on a CUDA tensor), fed transposed views of q, k and v, so
+    no (B, H, S, D) copy is made; otherwise the plain ``_sdpa``."""
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if cfg.use_pallas:
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True).transpose(1, 2)
+    else:
+        o = _sdpa(q, k, v, causal=True)
+    return _out(o, p["wo"])
 
 
 def attend_prefill(cfg, p, x, cos, sin):

@@ -1,5 +1,5 @@
 """Shared model machinery: parameter specs with logical sharding axes,
-initialization, norms, rotary embeddings (the port of
+initialization, norms, rotary embeddings, the LM loss (the port of
 ``repro.models.common``).
 
 Parameters are declared once as ``ParamSpec`` trees (nested dicts of shape
@@ -103,10 +103,15 @@ def stack_specs(specs, n: int, axis_name: str = LAYERS):
                                            s.init, s.scale, s.dtype), specs)
 
 
-def index(tree, i: int):
-    """Leaf ``i`` along the leading (stacked) axis of every tensor in a
-    nested dict: views, no copies."""
-    return tree_map(lambda _, t: t[i], tree)
+def unstack(tree) -> list:
+    """The slices of a nested dict along the leading (stacked) axis of every
+    tensor, as a list of nested dicts of views (no copies). The slices come
+    from one ``torch.unbind`` per leaf, so their gradients flow back as one
+    stack; indexing each slice apart would give every slice's gradient the
+    full stacked size."""
+    parts = tree_map(lambda _, t: t.unbind(0), tree)
+    n = len(leaves(parts)[0])
+    return [tree_map(lambda _, ts: ts[i], parts) for i in range(n)]
 
 
 # ------------------------------------------------------------------- numerics
@@ -149,3 +154,18 @@ def apply_rope(x, cos, sin):
     c = cos[:, :, None, :].to(x.dtype)
     s = sin[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# ---------------------------------------------------------------------- loss
+
+def cross_entropy_loss(logits, labels, z_loss: float = 1e-4):
+    """Mean next-token cross entropy in float32, plus ``z_loss`` times the
+    mean squared log-normalizer (it keeps large vocab heads stable).
+    logits (B, S, V), labels (B, S)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    ce = (lse - gold).mean()
+    if z_loss:
+        ce = ce + z_loss * (lse ** 2).mean()
+    return ce

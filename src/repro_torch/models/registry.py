@@ -1,7 +1,8 @@
 """Model registry: one ``ModelBundle`` per architecture family, the port of
-``repro.models.registry``, with the serving interface:
+``repro.models.registry``:
 
     init(seed, device)                  -> params (nested dict of tensors)
+    loss(params, batch)                 -> (scalar loss, metrics)
     prefill(params, batch)              -> (logits, caches)
     decode(params, batch, caches)       -> (logits, caches)   caches in place
     make_batch(shape, seed, device)     -> batch of the reference's numbers
@@ -39,6 +40,7 @@ _NOT_PORTED = {
 class ModelBundle:
     cfg: ModelConfig
     specs: dict
+    loss: Callable
     prefill: Callable
     decode: Callable
     cache_spec: Callable
@@ -96,6 +98,7 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
     if fam == "mamba_hybrid":
         return ModelBundle(
             cfg=cfg, specs=zamba.zamba_specs(cfg),
+            loss=partial(zamba.zamba_loss, cfg),
             prefill=partial(zamba.zamba_prefill, cfg),
             decode=partial(zamba.zamba_decode, cfg),
             cache_spec=partial(zamba.zamba_cache_spec, cfg))

@@ -1,21 +1,25 @@
 """zamba2: Mamba2 backbone with a weight-SHARED attention+MLP block applied
 every ``cfg.shared_attn_every`` layers, specialized per call site by LoRA
-adapters (arXiv:2411.15242). The serving half of ``repro.models.zamba``.
+adapters (arXiv:2411.15242). The port of ``repro.models.zamba``.
 
 Structure: L mamba layers in G = L / every groups; each group runs its
 mamba layers, then the shared transformer block with that group's LoRA
 (q-projection and MLP-gate adapters). Parameters are stacked as in the
 reference, (G, every, ...) for mamba and (G, ...) for LoRA; the reference's
-two nested scans are two Python loops over those stacks here.
-``zamba_loss`` comes with the training slice (its attention is kernel B2).
+two nested scans are two Python loops over those stacks here. Training
+(``zamba_loss``) runs the shared block's attention through kernel B2 and
+every Mamba layer's scan through kernel B3 under ``cfg.use_pallas``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from .attention import attend_decode, attend_prefill, attn_specs, kv_cache_shape
+from .attention import (attend_decode, attend_prefill, attend_train,
+                        attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, HEADS, KV_HEADS, LORA, VOCAB,
-                     ParamSpec, index, rms_norm, rope_cos_sin, stack_specs)
+                     ParamSpec, cross_entropy_loss, rms_norm, rope_cos_sin,
+                     stack_specs, unstack)
 from .mamba2 import mamba_cache_shapes, mamba_mix, mamba_specs
 from .mlp import swiglu, swiglu_specs
 
@@ -71,13 +75,15 @@ def _shared_block(cfg, shared, lora, x, cos, sin, mode, kv_cache=None,
     attn_p = dict(shared["attn"])
     attn_p["wq"] = attn_p["wq"] + torch.einsum(
         "dr,rhk->dhk", lora["q_a"], lora["q_b"]).to(attn_p["wq"].dtype)
-    if mode == "prefill":
+    new_cache = None
+    if mode == "train":
+        a = attend_train(cfg, attn_p, h, cos, sin)
+    elif mode == "prefill":
         a, new_cache = attend_prefill(cfg, attn_p, h, cos, sin)
     elif mode == "decode":
         a, new_cache = attend_decode(cfg, attn_p, h, cos, sin, kv_cache, pos)
     else:
-        raise ValueError(f"unknown mode {mode!r} (the port serves prefill "
-                         f"and decode; training comes with its slice)")
+        raise ValueError(f"unknown mode {mode!r}")
     x = x + a
     h = rms_norm(x, shared["ln2"], cfg.norm_eps)
     mlp_p = dict(shared["mlp"])
@@ -86,13 +92,36 @@ def _shared_block(cfg, shared, lora, x, cos, sin, mode, kv_cache=None,
     return x + swiglu(mlp_p, h), new_cache
 
 
+def _remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    instead of kept (the reference's ``jax.checkpoint``). The model draws
+    no random numbers, so no RNG state is saved."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _train_layer(cfg, lp, x):
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    out, _ = mamba_mix(cfg, lp["mix"], h)
+    return x + out
+
+
+def _train_group(cfg, shared, layers, lora, x, cos, sin):
+    """One group in training: its Mamba layers, each checkpointed under
+    ``cfg.remat``, then the shared block."""
+    for lp in layers:
+        x = (_remat(_train_layer, cfg, lp, x) if cfg.remat
+             else _train_layer(cfg, lp, x))
+    x, _ = _shared_block(cfg, shared, lora, x, cos, sin, "train")
+    return x
+
+
 def _forward(cfg, params, x, mode, caches=None, pos=None):
-    """Prefill returns fresh caches {"conv": (G,E,...), "ssm": (G,E,...),
-    "kv": ((G,B,S,...), (G,B,S,...))}. Decode updates ``caches`` (with kv
-    at their full length) IN PLACE and returns them."""
+    """Training returns (x, None); under ``cfg.remat`` each group and,
+    inside it, each Mamba layer is checkpointed, as the reference nests its
+    ``jax.checkpoint``s. Prefill returns fresh caches {"conv": (G,E,...),
+    "ssm": (G,E,...), "kv": ((G,B,S,...), (G,B,S,...))}. Decode updates
+    ``caches`` (with kv at their full length) IN PLACE and returns them."""
     B, S = x.shape[:2]
-    G = cfg.n_layers // cfg.shared_attn_every
-    E = cfg.shared_attn_every
     decode = mode == "decode"
     if decode:
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
@@ -100,12 +129,18 @@ def _forward(cfg, params, x, mode, caches=None, pos=None):
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
     cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    groups = [unstack(g) for g in unstack(params["mamba"])]
+    loras = unstack(params["lora"])
+
+    if mode == "train":
+        for layers, lora in zip(groups, loras):
+            args = (cfg, params["shared"], layers, lora, x, cos, sin)
+            x = _remat(_train_group, *args) if cfg.remat else _train_group(*args)
+        return x, None
 
     convs, ssms, ks, vs = [], [], [], []
-    for g in range(G):
-        group = index(params["mamba"], g)
-        for e in range(E):
-            lp = index(group, e)
+    for g, (layers, lora) in enumerate(zip(groups, loras)):
+        for e, lp in enumerate(layers):
             h = rms_norm(x, lp["ln"], cfg.norm_eps)
             if decode:
                 out, (nc, ns) = mamba_mix(
@@ -119,13 +154,13 @@ def _forward(cfg, params, x, mode, caches=None, pos=None):
                 ssms.append(ns)
             x = x + out
         kv = (caches["kv"][0][g], caches["kv"][1][g]) if decode else None
-        x, (k, v) = _shared_block(cfg, params["shared"],
-                                  index(params["lora"], g), x, cos, sin, mode,
-                                  kv_cache=kv, pos=pos)
+        x, (k, v) = _shared_block(cfg, params["shared"], lora, x, cos, sin,
+                                  mode, kv_cache=kv, pos=pos)
         ks.append(k)
         vs.append(v)
     if decode:
         return x, caches
+    G, E = len(groups), len(groups[0])
     new_caches = {
         "conv": torch.stack(convs).unflatten(0, (G, E)),
         "ssm": torch.stack(ssms).unflatten(0, (G, E)),
@@ -136,6 +171,16 @@ def _forward(cfg, params, x, mode, caches=None, pos=None):
 
 def _embed(cfg, params, tokens):
     return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+
+
+def zamba_loss(cfg, params, batch_dict):
+    """(loss, metrics) of a batch {"tokens", "labels"} (B, S): the model in
+    its training mode, then the f32 cross entropy with z-loss."""
+    x = _embed(cfg, params, batch_dict["tokens"])
+    x, _ = _forward(cfg, params, x, "train")
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = x @ params["lm_head"].to(x.dtype)
+    return cross_entropy_loss(logits, batch_dict["labels"]), {}
 
 
 def zamba_prefill(cfg, params, batch_dict):
