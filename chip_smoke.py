@@ -21,7 +21,9 @@ Phases, one JSON line each:
 
   env          torch / CUDA versions, the card, its power limit
   build        nvcc of ``src/repro_torch/csrc/{forest,ssd,flash_attn}.cu``,
-               all started together, and their -Xptxas -v lines
+               all started together, their -Xptxas -v lines, and each
+               kernel's tensor-core instructions (HMMA / HGMMA in
+               ``cuobjdump --dump-sass``); the bf16 kernels must have some
   fit          the forests, fitted on the host
   kernel       the forest kernel against its plain torch version (``ref.py``)
                on the same CUDA tensors, depth {2,5,8,10} x batch
@@ -35,15 +37,16 @@ Phases, one JSON line each:
   ssd_kernel   the SSD kernel against its plain version (``ssd_chunked``) on
                the same CUDA tensors at 80 heads of 64, state 64: (Bsz, S) in
                {(1,1), (1,100), (1,500), (4,512), (2,2048)}, f32 and bf16, one
-               case with h0, one with B/C strided as the model passes them;
-               bitwise repeatable
+               case with h0, two with B/C strided as the model passes them
+               (the serving and the training shape); bitwise repeatable
   lm_serve     zamba2-2.7b: generate() on the card, its SSD launches counted
                (54 per prefill), then every layer's SSD call held in place to
                the plain version in bf16 and in f32 (``kernels.watch``), and
                the whole f32 prefill's logits and caches to the plain chunked
                path (use_pallas=False)
   lm_timing    prefill and decode times of the served model; the SSD kernel
-               at the serving shape beside its plain version and its bound
+               at the serving shape (its three bf16 passes summed, and each)
+               beside its plain version and its bound
   flash_kernel the flash-attention kernel against its plain version
                (``attention_ref``) on the same CUDA tensors: the reference's
                five test shapes and its bf16 case, zamba2's training shape,
@@ -58,7 +61,8 @@ Phases, one JSON line each:
   train_timing step time and tokens/s; one traced step (the card's busy
                share, the largest kernels); the flash kernel at the training
                shape beside its plain version, its bound and SDPA (timed as a
-               yardstick only)
+               yardstick only); the SSD kernel at the training shape (one
+               microbatch, 2 x 1024) as in lm_timing
   lm_train_f32 one whole f32 step (batch 1 x 512) through the kernels: loss
                and gradient norm beside the plain path, a second correct
                order and two broken kernels (reported; PERF.md says why no
@@ -150,6 +154,13 @@ TRAIN_CALL_REL = {"flash_attention": (2 ** -7,), "ssd_scan": (2 ** -7, 1e-3)}
 # in-place checks carry correctness
 TRAIN_F32_BATCH, TRAIN_F32_SEQ = 1, 512
 
+# the CUDA kernels each wrapper call launches, by the name the profiler
+# shows: the SSD scan's bf16 entry runs three passes, its f32 entry one
+# kernel; flash attention one kernel per entry
+SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+               "ssd_chunk_out_kernel", "ssd_chunk_kernel")
+FLASH_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel")
+
 
 def dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
@@ -184,23 +195,38 @@ def cuda_ms(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, name: str, iters: int = 50) -> float | None:
-    """Mean device time of the kernels named ``name`` that ``fn()``
-    launches, from torch.profiler's CUDA trace: the kernel alone, without
-    the host's launch cost. None when the trace holds no such kernel."""
+def kernel_times(fn, names, iters: int = 50) -> dict:
+    """Device ms per launch of each CUDA kernel whose name holds one of
+    ``names`` (a name or a tuple of names) while ``fn()`` runs ``iters``
+    times, from torch.profiler's CUDA trace: the kernels alone, without the
+    host's launch cost. Each kernel's mean over its device events of
+    nonzero length (the trace may hold a kernel's launch twice, once with
+    no duration). {} when the trace holds no such kernel."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    names = (names,) if isinstance(names, str) else tuple(names)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    hits = [a for a in prof.key_averages() if name in a.key]
-    count = sum(a.count for a in hits)
-    if not count:
-        return None
-    return sum(a.device_time_total for a in hits) / count / 1e3
+    durations = {}
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        if (e.device_type == DeviceType.CUDA and us > 0
+                and any(n in e.name for n in names)):
+            durations.setdefault(e.name, []).append(us)
+    return {k: sum(v) / len(v) / 1e3 for k, v in durations.items()}
+
+
+def kernel_device_ms(fn, names, iters: int = 50) -> float | None:
+    """Device time per call of ``fn()`` of the kernels ``names`` picks
+    (``kernel_times`` summed: one call launches each once, as the SSD
+    scan's three passes). None when the trace holds no such kernel."""
+    times = kernel_times(fn, names, iters)
+    return sum(times.values()) if times else None
 
 
 def bound(x, feature, threshold, depth: int) -> tuple[float, str, dict]:
@@ -229,13 +255,14 @@ def bound(x, feature, threshold, depth: int) -> tuple[float, str, dict]:
     return max(t_bytes, t_ops), by, {"bytes": n_bytes, "ops": n_ops}
 
 
-def profile_breakdown(fn, *find: str, top: int = 8) -> dict:
+def profile_breakdown(fn, find: dict | None = None, top: int = 8) -> dict:
     """One synchronised call of ``fn()`` under torch.profiler: host wall
     ms, the sum of the device's kernel times, the device's busy share of
-    the wall time, the number of kernels, for each name in ``find`` the
-    kernels whose name holds it (their device ms, launches and share of the
-    wall time), and the ``top`` kernels by device time. Only device events
-    are summed: an aten op's self device time is its kernels' time again."""
+    the wall time, the number of kernels, for each label of ``find`` the
+    kernels whose name holds one of its names (their device ms, launches
+    and share of the wall time), and the ``top`` kernels by device time.
+    Only device events are summed: an aten op's self device time is its
+    kernels' time again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -254,14 +281,54 @@ def profile_breakdown(fn, *find: str, top: int = 8) -> dict:
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
            "busy_share": device_ms / wall_ms,
            "kernels": sum(r[1] for r in rows)}
-    for name in find:
-        found = [r for r in rows if name in r[0]]
+    for label, names in (find or {}).items():
+        found = [r for r in rows if any(n in r[0] for n in names)]
         found_ms = sum(r[2] for r in found)
-        out[name] = {"ms": found_ms, "count": sum(r[1] for r in found),
-                     "share_of_wall": found_ms / wall_ms}
+        out[label] = {"ms": found_ms, "count": sum(r[1] for r in found),
+                      "share_of_wall": found_ms / wall_ms,
+                      "kernels": {r[0][:60]: r[1] for r in found}}
     out["top"] = [{"name": k[:90], "count": c, "ms": m}
                   for k, c, m in rows[:top]]
     return out
+
+
+def kernel_name(mangled: str) -> str:
+    """The kernel's name in a mangled symbol, with its template arguments
+    as mangled (``flash_fwd_mma_kernelILi5E``): the first length-prefixed
+    name that ends in ``_kernel``."""
+    import re
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        j = i + len(m.group())
+        name = mangled[j:j + int(m.group())]
+        if name.endswith("_kernel"):
+            rest = mangled[j + len(name):]
+            return name + (rest[:rest.find("E") + 1]
+                           if rest.startswith("I") else "")
+        i = j + len(name)
+    return mangled
+
+
+def tensor_core_counts(library: Path) -> dict:
+    """Tensor-core instructions in each kernel of a built library, from
+    ``cuobjdump --dump-sass``: {kernel: {"HMMA": n, "HGMMA": m}}."""
+    import re
+
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "--dump-sass", str(library)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        counts[kernel_name(part.split("\n", 1)[0].strip())] = {
+            op: len(re.findall(rf"\b{op}\b", part))
+            for op in ("HMMA", "HGMMA")}
+    return counts
 
 
 def ssd_inputs(dev, B: int, S: int, dtype, seed: int, strided: bool = False):
@@ -291,7 +358,10 @@ def ssd_bound(x, alog, B, C, chunk: int) -> tuple[float, str, dict]:
     chunked form's products over the peak rate for the inputs' type: bf16
     tensor cores, or fp32). The products: C.B^T, 2L^2N once per batch and
     chunk (B and C are shared across heads), then 2L^2P + 4LNP per chunk
-    and head."""
+    and head. Beside it (in the dict), the same bound with the bf16
+    kernel's per-chunk state traffic added: the states (f32) written and
+    read, h_in (a bf16 hi + lo pair) written and read, 16 bytes per
+    element of (Bsz, H, chunks, N, P)."""
     import torch
     Bsz, S, H, P = x.shape
     N = B.shape[-1]
@@ -299,13 +369,44 @@ def ssd_bound(x, alog, B, C, chunk: int) -> tuple[float, str, dict]:
     n_bytes = (2 * x.numel() + B.numel() + C.numel()) * es \
         + alog.numel() * 4 + Bsz * H * N * P * 4
     L = chunk
-    n_ops = Bsz * -(-S // L) * (2 * L * L * N
-                                + H * (2 * L * L * P + 4 * L * N * P))
+    nck = -(-S // L)
+    n_ops = Bsz * nck * (2 * L * L * N + H * (2 * L * L * P + 4 * L * N * P))
     rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / rate * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, {"bytes": n_bytes, "ops": n_ops}
+    state_bytes = 16 * Bsz * H * nck * N * P
+    with_states = max((n_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3, t_ops)
+    return max(t_bytes, t_ops), by, {"bytes": n_bytes, "ops": n_ops,
+                                     "state_bytes": state_bytes,
+                                     "bound_with_states_ms": with_states}
+
+
+def ssd_timing(dev, B: int, S: int) -> dict:
+    """The SSD kernel at (B, S), bf16, B/C strided as the model passes
+    them: events ms, device ms (its CUDA kernels summed, and each alone),
+    the plain version's ms, the bound."""
+    import torch
+    from repro_torch.kernels.mamba import ops as sops
+    from repro_torch.kernels.mamba.ref import ssd_chunked
+    x, alog, Bm, Cm = ssd_inputs(dev, B, S, torch.bfloat16, seed=7,
+                                 strided=True)
+
+    def launch():
+        return sops.ssd_scan(x, alog, Bm, Cm)
+    k_ms = cuda_ms(launch, iters=50, warmup=5)
+    times = kernel_times(launch, SSD_KERNELS, iters=20)
+    passes = {n: sum(t for k, t in times.items() if n in k)
+              for n in SSD_KERNELS[:3]}
+    d_ms = sum(passes.values())
+    p_ms = cuda_ms(lambda: ssd_chunked(x, alog, Bm, Cm, chunk=128), iters=10,
+                   warmup=2)
+    b_ms, b_by, work = ssd_bound(x, alog, Bm, Cm, chunk=128)
+    return {"ms": k_ms, "device_ms": d_ms, "passes_device_ms": passes,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, **work,
+            "library_ms": None,
+            "shape": {"Bsz": B, "S": S, "H": SSD_H, "P": SSD_P, "N": SSD_N,
+                      "dtype": "bfloat16", "chunk": 128}}
 
 
 def ssd_kernel_phase(dev) -> dict:
@@ -316,7 +417,8 @@ def ssd_kernel_phase(dev) -> dict:
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         cases += [(B, S, dtype, False, False) for B, S in SSD_CASES]
-        cases += [(2, 300, dtype, True, False), (4, 512, dtype, False, True)]
+        cases += [(2, 300, dtype, True, False), (4, 512, dtype, False, True),
+                  (2, 1024, dtype, False, True)]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     results = []
     for i, (B, S, dtype, with_h0, strided) in enumerate(cases):
@@ -428,16 +530,19 @@ def flash_kernel_phase(dev) -> dict:
                         "dtype": dtype_name(dtype),
                         "strided": strided, "max_abs_err": err})
     # keys masked past kv_len, and rows that see no key (kv_offset < 0)
-    q, k, v = flash_inputs(dev, 2, 4, 2, 96, 80, 64, torch.float32, seed=50)
-    for kv_len, kv_offset in ((53, 27), (80, -40), (0, 0)):
-        o = flash_attention_kernel(q, k, v, causal=True, kv_len=kv_len,
-                                   kv_offset=kv_offset)
-        plain = attention_ref(q, k, v, causal=True, kv_len=kv_len,
-                              kv_offset=kv_offset)
-        torch.testing.assert_close(o, plain, **FLASH_TOL["float32"],
-                                   msg=f"kv_len={kv_len} offset={kv_offset}")
-        if kv_offset < 0 and bool(o[:, :, :-kv_offset].any()):
-            raise AssertionError("a row that sees no key is not 0")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(dev, 2, 4, 2, 96, 80, 64, dtype, seed=50)
+        for kv_len, kv_offset in ((53, 27), (80, -40), (0, 0)):
+            o = flash_attention_kernel(q, k, v, causal=True, kv_len=kv_len,
+                                       kv_offset=kv_offset)
+            plain = attention_ref(q, k, v, causal=True, kv_len=kv_len,
+                                  kv_offset=kv_offset)
+            torch.testing.assert_close(
+                o.float(), plain.float(), **FLASH_TOL[dtype_name(dtype)],
+                msg=f"kv_len={kv_len} offset={kv_offset} {dtype}")
+            if kv_offset < 0 and bool(o[:, :, :-kv_offset].any()):
+                raise AssertionError(f"a row that sees no key is not 0 "
+                                     f"({dtype})")
     # gradients: the Function's backward (the plain version recomputed)
     # against autograd of the plain version; the same operations on the same
     # inputs, so they should agree to the bit
@@ -578,8 +683,6 @@ def lm_timing_phase(dev, served: dict, smi: str) -> dict:
     serving shape (bf16 x, B/C strided as the model passes them)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.mamba import ops as sops
-    from repro_torch.kernels.mamba.ref import ssd_chunked
     from repro_torch.launch.serve import place_prefill_caches
 
     model, params, batch = served["model"], served["params"], served["batch"]
@@ -594,36 +697,21 @@ def lm_timing_phase(dev, served: dict, smi: str) -> dict:
     decode_ms = float(np.median(served["times"])) * 1e3
     # where the time goes: one prefill and one decode step, traced
     prefill_trace = profile_breakdown(lambda: model.prefill(params, batch),
-                                      "ssd_chunk_kernel")
+                                      {"ssd": SSD_KERNELS})
     _, caches = model.prefill(params, batch)
     caches = place_prefill_caches(model, caches, LM_PROMPT + 1)
     step = {"tokens": batch["tokens"][:, -1:], "pos": LM_PROMPT}
     decode_trace = profile_breakdown(
-        lambda: model.decode(params, step, caches), "ssd_chunk_kernel")
+        lambda: model.decode(params, step, caches), {"ssd": SSD_KERNELS})
     del caches
-
-    x, alog, Bm, Cm = ssd_inputs(dev, LM_BATCH, LM_PROMPT, torch.bfloat16,
-                                 seed=7, strided=True)
-
-    def launch():
-        return sops.ssd_scan(x, alog, Bm, Cm)
-    k_ms = cuda_ms(launch, iters=50, warmup=5)
-    d_ms = kernel_device_ms(launch, "ssd_chunk_kernel", iters=20)
-    p_ms = cuda_ms(lambda: ssd_chunked(x, alog, Bm, Cm, chunk=128), iters=10,
-                   warmup=2)
-    b_ms, b_by, work = ssd_bound(x, alog, Bm, Cm, chunk=128)
-    out = {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-           "bound_by": b_by, **work, "library_ms": None,
-           "shape": {"Bsz": LM_BATCH, "S": LM_PROMPT, "H": SSD_H, "P": SSD_P,
-                     "N": SSD_N, "dtype": "bfloat16", "chunk": 128}}
+    out = ssd_timing(dev, LM_BATCH, LM_PROMPT)
     emit("lm_timing", arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT,
          prefill_ms=prefill_ms, prefill_runs_ms=[t * 1e3 for t in pre],
          decode_ms_median=decode_ms,
          decode_ms_all=[t * 1e3 for t in served["times"]],
          decode_tokens_per_s=LM_BATCH / decode_ms * 1e3,
          ssd_launches_per_prefill=served["launches"],
-         ssd_share_of_prefill=prefill_trace["ssd_chunk_kernel"][
-             "share_of_wall"],
+         ssd_share_of_prefill=prefill_trace["ssd"]["share_of_wall"],
          ssd=out, prefill_trace=prefill_trace, decode_trace=decode_trace,
          card=smi)
     return out
@@ -716,7 +804,8 @@ def lm_train_phase(dev) -> dict:
          checked_step_loss=float(metrics["loss"]), checked_calls=calls,
          worst_call_rel=worst, call_limits=TRAIN_CALL_REL)
     return {"state": state, "batch": batch, "step": step,
-            "step_s": step_s, "launches": launches, "per_step": per_step}
+            "step_s": step_s, "launches": launches, "per_step": per_step,
+            "microbatches": cfg.microbatches}
 
 
 def lm_train_f32_phase(dev) -> dict:
@@ -792,10 +881,11 @@ def train_timing_phase(dev, trained: dict, smi: str) -> dict:
     from repro_torch.kernels.attention.ref import attention_ref
 
     warmup_s, timed = trained["step_s"][0], trained["step_s"][1:]
+    trained_microbatches = trained["microbatches"]
     step_ms = float(np.median(timed)) * 1e3
     trace = profile_breakdown(
         lambda: trained["step"](trained["state"], trained["batch"]),
-        "ssd_chunk_kernel", "flash_fwd_kernel", top=12)
+        {"ssd": SSD_KERNELS, "flash": FLASH_KERNELS}, top=12)
     trained.clear()                            # free the training state
     torch.cuda.empty_cache()
 
@@ -805,7 +895,7 @@ def train_timing_phase(dev, trained: dict, smi: str) -> dict:
     def launch():
         return fops.flash_attention(q, k, v, causal=True)
     k_ms = cuda_ms(launch, iters=30, warmup=3)
-    d_ms = kernel_device_ms(launch, "flash_fwd_kernel", iters=10)
+    d_ms = kernel_device_ms(launch, FLASH_KERNELS, iters=10)
     p_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), iters=5,
                    warmup=1)
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
@@ -819,16 +909,19 @@ def train_timing_phase(dev, trained: dict, smi: str) -> dict:
                        "Skv": FLASH_TRAIN[4], "D": FLASH_TRAIN[5],
                        "causal": True, "dtype": "bfloat16",
                        "layout": "(B, S, H, D) transposed"}}
+    # the SSD kernel at the training shape: one microbatch of the config's
+    # 2, so 2 x 1024 tokens a call
+    ssd = ssd_timing(dev, TRAIN_BATCH // trained_microbatches, TRAIN_SEQ)
     emit("train_timing", arch=LM_ARCH, global_batch=TRAIN_BATCH,
          seq=TRAIN_SEQ, step_ms_median=step_ms,
          step_ms_timed=[t * 1e3 for t in timed],
          step_ms_warmup=warmup_s * 1e3,
          tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
-         ssd_share_of_step=trace["ssd_chunk_kernel"]["ms"] / step_ms,
-         flash_share_of_step=trace["flash_fwd_kernel"]["ms"] / step_ms,
-         step_trace=trace, flash=flash,
+         ssd_share_of_step=trace["ssd"]["ms"] / step_ms,
+         flash_share_of_step=trace["flash"]["ms"] / step_ms,
+         step_trace=trace, flash=flash, ssd=ssd,
          card=smi)
-    return flash
+    return {"flash": flash, "ssd": ssd}
 
 
 def main() -> int:
@@ -871,10 +964,20 @@ def main() -> int:
         return [ln.strip() for ln in info.log.splitlines()
                 if any(k in ln for k in ("registers", "spill", "smem",
                                          "Compiling entry", "bytes stack"))]
+    # the bf16 entries' kernels must run their products on the tensor cores
+    tc = {i.library.stem: tensor_core_counts(i.library) for i in infos}
+    bf16_kernels = ("flash_fwd_mma_kernel", "ssd_chunk_state_kernel",
+                    "ssd_chunk_out_kernel")
+    found = {n: sum(c["HMMA"] + c["HGMMA"] for lib in tc.values()
+                    for k, c in lib.items() if k.startswith(n))
+             for n in bf16_kernels}
     emit("build", seconds=time.perf_counter() - t0,
          commands=[" ".join(i.command) for i in infos],
          ptxas={i.library.stem: ptxas(i) for i in infos},
-         tree_stride=fk.TREE_STRIDE)
+         tensor_core_instructions=tc, tree_stride=fk.TREE_STRIDE)
+    if not all(found.values()):
+        raise AssertionError(f"bf16 kernels without tensor-core "
+                             f"instructions: {found}")
 
     # --------------------------------------------------------------- fit
     t0 = time.perf_counter()
@@ -1063,7 +1166,8 @@ def main() -> int:
     flash = flash_kernel_phase(dev)
     trained = lm_train_phase(dev)
     train_launches, per_step = trained["launches"], trained["per_step"]
-    flash_t = train_timing_phase(dev, trained, smi)
+    train_t = train_timing_phase(dev, trained, smi)
+    flash_t, ssd_t = train_t["flash"], train_t["ssd"]
     lm_train_f32_phase(dev)
 
     main_b = next(t for t in timing if t["B"] == X.shape[0])
@@ -1085,9 +1189,16 @@ def main() -> int:
         "ms": lm["ms"], "device_ms": lm["device_ms"],
         "plain_ms": lm["plain_ms"], "bound_ms": lm["bound_ms"],
         "bound_by": lm["bound_by"], "library_ms": None,
-        "shape": lm["shape"],
+        "shape": lm["shape"], "cuda_kernels": list(SSD_KERNELS[:3]),
+        "passes_device_ms": lm["passes_device_ms"],
+        "bound_with_states_ms": lm["bound_with_states_ms"],
         "train_launches": train_launches["ssd_scan"],
-        "train_launches_per_step": per_step["ssd_scan"]}, {
+        "train_launches_per_step": per_step["ssd_scan"],
+        "train_ms": ssd_t["ms"], "train_device_ms": ssd_t["device_ms"],
+        "train_plain_ms": ssd_t["plain_ms"],
+        "train_bound_ms": ssd_t["bound_ms"],
+        "train_bound_with_states_ms": ssd_t["bound_with_states_ms"],
+        "train_shape": ssd_t["shape"]}, {
         "name": "flash_attention_bf16", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:22",
@@ -1099,7 +1210,8 @@ def main() -> int:
         "plain_ms": flash_t["plain_ms"], "bound_ms": flash_t["bound_ms"],
         "bound_by": flash_t["bound_by"],
         "library_ms": flash_t["library_ms"],
-        "shape": flash_t["shape"]}]}), flush=True)
+        "shape": flash_t["shape"], "cuda_kernels": [FLASH_KERNELS[0]]}]}),
+        flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

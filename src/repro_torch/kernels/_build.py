@@ -7,8 +7,9 @@ Each source has a plain C entry point and is compiled on its own with
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<stem>_<hash>.so <source>
 
 The library goes to ``build/kernels/`` at the root of the checkout, named by
-the source's stem and a hash of the source and the flags, so an edited
-source builds anew and an unchanged one is built once per checkout. A failed
+the source's stem and a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header builds anew
+and an unchanged one is built once per checkout. A failed
 build raises. Two sources build in parallel (one lock per source), so a
 caller that needs several kernels starts all builds at once. Nothing here
 runs when the module is imported: the CPU tests import it on hosts without
@@ -50,7 +51,8 @@ def _lock(source: Path) -> threading.Lock:
         return _locks.setdefault(source, threading.Lock())
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The path of ``nvcc``: on PATH, else under CUDA_HOME."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -68,14 +70,17 @@ def build(source: Path) -> Build:
     with _lock(source):
         if source in _builds:
             return _builds[source]
+        headers = b"".join(h.read_bytes()
+                           for h in sorted(source.parent.glob("*.cuh")))
         digest = hashlib.sha256(
-            source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            source.read_bytes() + headers
+            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         lib = BUILD_DIR / f"{source.stem}_{digest}.so"
         log_path = lib.with_suffix(".log")
-        nvcc = _nvcc()
+        compiler = nvcc()
 
         def command(out: Path) -> tuple[str, ...]:
-            return (nvcc, *NVCC_FLAGS, "-o", str(out), str(source))
+            return (compiler, *NVCC_FLAGS, "-o", str(out), str(source))
         if not lib.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             # nvcc names the output's kind by its suffix: keep ".so"

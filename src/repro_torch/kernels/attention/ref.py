@@ -14,12 +14,20 @@ gives the kernel's backward. It computes in float32 (two passes: the row
 max over the valid keys, then the sums) and returns q's dtype. Masked
 scores are replaced before ``exp`` and their weights zeroed, so neither the
 output nor its gradient ever sees an inf or a NaN.
+
+``attention_online`` is the bf16 kernel's arithmetic in plain torch, for
+the tests: 64-key tiles, S = q . k in f32 then scaled, the online softmax in
+the log2 domain, and P rounded where the kernel rounds it before P V (as a
+bf16 hi + lo pair, or, with ``p_pairs=False``, as one bf16 value). No path
+of the port runs it.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..hilo import through_pair
 
 NEG = -1e30                       # the reference kernel's NEG_INF
 
@@ -51,3 +59,43 @@ def attention_ref(q, k, v, *, causal: bool = True,
     den = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
     return (o / torch.where(den == 0, 1.0, den)).to(q.dtype)
+
+
+def attention_online(q, k, v, *, causal: bool = True,
+                     sm_scale: float | None = None, kv_len: int | None = None,
+                     kv_offset: int | None = None, block_k: int = 64,
+                     p_pairs: bool = True):
+    """The same function as ``attention_ref``, computed as the bf16 kernel
+    computes it (see the module note). Returns (B, Hq, Sq, D) in q's
+    dtype: pass f32 copies of bf16 inputs to see the output before its
+    rounding to bf16."""
+    Sq, D = q.shape[2], q.shape[3]
+    Hq, Hkv, Skv = q.shape[1], k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = 1.0 / math.sqrt(D) if sm_scale is None else sm_scale
+    scale_log2 = torch.tensor(scale * math.log2(math.e), dtype=torch.float32)
+    kv_len = Skv if kv_len is None else kv_len
+    kv_offset = Skv - Sq if kv_offset is None else kv_offset
+    qf = q.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    rows = torch.arange(Sq, device=q.device)[:, None]
+    m = qf.new_full(qf.shape[:3], NEG)
+    l = qf.new_zeros(qf.shape[:3])
+    o = qf.new_zeros(qf.shape)
+    for k0 in range(0, Skv, block_k):
+        keys = torch.arange(k0, min(k0 + block_k, Skv), device=q.device)
+        valid = (keys < kv_len)[None, :]
+        if causal:
+            valid = valid & (keys[None, :] <= rows + kv_offset)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, keys]) * scale_log2
+        s = s.masked_fill(~valid, NEG)                   # mask BEFORE exp
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None]).masked_fill(~valid, 0.0)
+        l = alpha * l + p.sum(dim=-1)
+        pv = through_pair(p) if p_pairs else p.to(torch.bfloat16).float()
+        o = alpha[..., None] * o + torch.einsum("bhqk,bhkd->bhqd", pv,
+                                                vf[:, :, keys])
+        m = m_new
+    return (o / torch.where(l == 0, 1.0, l)[..., None]).to(q.dtype)

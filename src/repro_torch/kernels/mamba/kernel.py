@@ -6,8 +6,14 @@ The CUDA source has plain C entry points, one per input dtype, compiled with
 
     int ssd_scan_f32 (x, alog, B, C, h0, y, h_out, Bsz, S, H, P, N, chunk,
                       x strides (b, s, h), alog strides (b, s, h),
-                      B strides (b, s), C strides (b, s), stream)
+                      B strides (b, s), C strides (b, s), workspace, stream)
     int ssd_scan_bf16(... the same, with x, B, C and y in bfloat16)
+    long long ssd_workspace_bytes(Bsz, S, H, P, N, chunk)
+
+The bf16 entry runs three kernels in order on the stream (per-chunk states,
+the pass over the chunks, the chunks' outputs) through a workspace of
+``ssd_workspace_bytes`` bytes that the wrapper allocates; the f32 entry runs
+one kernel and takes no workspace.
 
 Nothing here runs when the module is imported: the CPU tests import it on
 hosts without ``nvcc``.
@@ -41,8 +47,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 10 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
+    lib.ssd_workspace_bytes.argtypes = [ctypes.c_int] * 6
+    lib.ssd_workspace_bytes.restype = ctypes.c_longlong
     limits = {}
     for name in ("ssd_max_chunk", "ssd_max_state", "ssd_max_head_dim"):
         getattr(lib, name).argtypes = []
@@ -63,7 +71,8 @@ def ssd_scan_kernel(x: torch.Tensor, alog: torch.Tensor, B: torch.Tensor,
                     C: torch.Tensor, *, chunk: int,
                     h0: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the current stream. Does not synchronise.
+    """Launch the kernel (for bf16, its three passes) on the current
+    stream. Does not synchronise.
 
     x: (Bsz, S, H, P) f32 or bf16 with P contiguous; alog: (Bsz, S, H) f32;
     B/C: (Bsz, S, N) in x's dtype with N contiguous; h0: None or
@@ -108,13 +117,22 @@ def ssd_scan_kernel(x: torch.Tensor, alog: torch.Tensor, B: torch.Tensor,
     lib = _library()
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     h = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    # per-chunk states and h_in of the bf16 passes; freed on return while
+    # the passes may still be queued, which is safe: the caching allocator
+    # hands the block out again only to work queued after them on this
+    # stream
+    work = None
+    if x.dtype == torch.bfloat16:
+        work = torch.empty(lib.ssd_workspace_bytes(Bsz, S, H, P, N, chunk),
+                           dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, _ENTRY[x.dtype])(
             x.data_ptr(), alog.data_ptr(), B.data_ptr(), C.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
             Bsz, S, H, P, N, chunk, *x.stride()[:3], *alog.stride(),
-            *B.stride()[:2], *C.stride()[:2], stream)
+            *B.stride()[:2], *C.stride()[:2],
+            None if work is None else work.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{_ENTRY[x.dtype]} launch failed: CUDA error "
                            f"{err} (x {tuple(x.shape)}, N={N}, chunk={chunk})")

@@ -19,6 +19,7 @@ from repro.kernels.attention.kernel import flash_attention_kernel as r_kernel
 from repro_torch.kernels import watch
 from repro_torch.kernels.attention import attention_ref, flash_attention, ops
 from repro_torch.kernels.attention.kernel import flash_attention_kernel
+from repro_torch.kernels.attention.ref import attention_online
 
 F32 = dict(rtol=2e-4, atol=2e-5)
 BF16 = dict(rtol=0.08, atol=0.08)
@@ -111,6 +112,53 @@ def test_gradients_are_the_plain_versions(causal):
     (dk,) = torch.autograd.grad(flash_attention(q.detach(), k, v.detach(),
                                                 causal=causal), (k,), g)
     torch.testing.assert_close(dk, want[1], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", SHAPES)
+def test_online_emulation_vs_reference(B, Hq, Hkv, Sq, Skv, D, causal):
+    """The bf16 kernel's arithmetic (64-key tiles, log2-domain online
+    softmax, P as a bf16 hi + lo pair: 2^-16 relative) on f32 inputs, held
+    to the reference's Pallas kernel at the reference's f32 tolerance."""
+    arrays = _inputs(B, Hq, Hkv, Sq, Skv, D, seed=B * 100 + Hq * 10 + Sq)
+    pallas = r_flash_attention(*map(jnp.asarray, arrays), causal=causal,
+                               block_q=32, block_k=32)
+    got = attention_online(*_t(*arrays), causal=causal, block_k=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **F32)
+
+
+@pytest.mark.parametrize("kv_len,kv_offset", [(50, 18), (64, -8), (0, 0)])
+def test_online_emulation_masks(kv_len, kv_offset):
+    arrays = _t(*_inputs(2, 4, 2, 32, 64, 16, seed=kv_len))
+    got = attention_online(*arrays, causal=True, sm_scale=0.25,
+                           kv_len=kv_len, kv_offset=kv_offset, block_k=16)
+    want = attention_ref(*arrays, causal=True, sm_scale=0.25, kv_len=kv_len,
+                         kv_offset=kv_offset)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32)
+    assert torch.isfinite(got).all()
+
+
+def test_p_rounding_points_at_the_training_limit():
+    """Where the bf16 kernel rounds P, at zamba2's head dim (80) in its
+    layout and bf16: with P as a hi + lo pair the output before its bf16
+    rounding stays within 2^-14 of the largest value of the plain f32
+    version's, and the bf16 output within the in-place limit of the
+    training step (2^-7 of the largest value, one bf16 ulp). One bf16 P
+    alone adds an error of 2^-9 per weight before the output's rounding:
+    that is what the pair removes, and it shows here above 2^-12."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.as_tensor(rng.normal(size=(1, 300, 4, 80)).astype(
+        np.float32)).to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    plain = attention_ref(q.float(), k.float(), v.float())
+    top = float(plain.abs().max())
+
+    def apart(got, want):
+        return float((got.float() - want.float()).abs().max()) / top
+    pair = attention_online(q.float(), k.float(), v.float())
+    single = attention_online(q.float(), k.float(), v.float(), p_pairs=False)
+    assert apart(pair, plain) <= 2.0 ** -14
+    assert apart(single, plain) > 2.0 ** -12
+    assert apart(attention_online(q, k, v), attention_ref(q, k, v)) \
+        <= 2.0 ** -7
 
 
 def test_watchers_see_and_may_replace_each_call():

@@ -15,6 +15,8 @@ from repro.kernels.mamba import ssd_ref as r_ssd_ref
 from repro.kernels.mamba import ssd_scan as r_ssd_scan
 from repro_torch.kernels.mamba import ops, ssd_chunked, ssd_ref, ssd_scan
 from repro_torch.kernels.mamba.kernel import ssd_scan_kernel
+from repro_torch.kernels.mamba.ref import (ssd_chunk_states,
+                                           ssd_state_passing, ssd_three_pass)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 SHAPES = [(2, 64, 3, 16, 8, 16),
@@ -86,6 +88,57 @@ def test_ssd_initial_state(S, chunk):
                  ssd_ref(*_t(x, alog, Bm, Cm), h0=torch.as_tensor(h0))):
         _close(y, ry)
         _close(h, rh)
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SHAPES)
+def test_three_pass_vs_reference(B, S, H, P, N, chunk, pairs):
+    """The bf16 kernel's three passes in plain torch, with and without its
+    hi + lo operand pairs (2^-16 relative each, well inside 2^-4 of the
+    reference's 2e-4 tolerance), against the reference's Pallas kernel
+    (interpret mode) and its sequential ssd_ref: ragged S, one chunk."""
+    arrays = _inputs(B, S, H, P, N, seed=B * 1000 + S * 10 + H)
+    ry, rh = r_ssd_scan(*map(jnp.asarray, arrays), chunk=chunk)
+    oy, oh = r_ssd_ref(*map(jnp.asarray, arrays))
+    y, h = ssd_three_pass(*_t(*arrays), chunk=chunk, pairs=pairs)
+    assert y.dtype == torch.float32 and y.shape == (B, S, H, P)
+    assert h.dtype == torch.float32 and h.shape == (B, H, N, P)
+    for got, want in ((y, ry), (h, rh), (y, oy), (h, oh)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("S,chunk", [(40, 16), (7, 8), (16, 16)])
+def test_three_pass_initial_state(S, chunk, pairs):
+    x, alog, Bm, Cm = _inputs(2, S, 3, 8, 4, seed=S)
+    h0 = np.random.default_rng(S + 1).normal(size=(2, 3, 4, 8)).astype(
+        np.float32)
+    ry, rh = r_ssd_ref(*map(jnp.asarray, (x, alog, Bm, Cm)),
+                       h0=jnp.asarray(h0))
+    y, h = ssd_three_pass(*_t(x, alog, Bm, Cm), h0=torch.as_tensor(h0),
+                          chunk=chunk, pairs=pairs)
+    _close(y, ry)
+    _close(h, rh)
+
+
+def test_three_pass_pieces():
+    """Pass 1's states and cs, pass 2's h_in: h_in[0] is h0, each next
+    h_in is the last decayed and plus the chunk's state, the last of the
+    walk is the final state; padded steps add 0 to cs."""
+    x, alog, Bm, _ = _t(*_inputs(2, 40, 3, 8, 4, seed=5))
+    h0 = torch.randn(2, 3, 4, 8, generator=torch.Generator().manual_seed(0))
+    states, cs = ssd_chunk_states(x, alog, Bm, chunk=16)
+    assert states.shape == (2, 3, 3, 4, 8) and cs.shape == (2, 3, 16, 3)
+    assert torch.equal(cs[:, 2, 8:], cs[:, 2, 7:8].expand(-1, 8, -1))
+    h_in, h = ssd_state_passing(states, cs, h0)
+    assert torch.equal(h_in[:, 0], h0)
+    for c in (1, 2):
+        want = torch.exp(cs[:, c - 1, -1])[..., None, None] * h_in[:, c - 1] \
+            + states[:, c - 1]
+        torch.testing.assert_close(h_in[:, c], want, rtol=0, atol=0)
+    _, rh = r_ssd_ref(*map(jnp.asarray, _inputs(2, 40, 3, 8, 4, seed=5)),
+                      h0=jnp.asarray(h0.numpy()))
+    _close(h, rh)
 
 
 def test_ssd_bf16_inputs_keep_dtype():
