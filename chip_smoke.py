@@ -26,14 +26,20 @@ Phases, one JSON line each:
                ``cuobjdump --dump-sass``); the bf16 kernels must have some
   fit          the forests, fitted on the host
   kernel       the forest kernel against its plain torch version (``ref.py``)
-               on the same CUDA tensors, depth {2,5,8,10} x batch
-               {1,7,64,328,4096}, rtol 1e-5 / atol 1e-6, bitwise repeatable
+               on the same CUDA tensors, tables packed once per depth:
+               depth {2,5,8,10} on the 512-tree forest and {11,12,14} (the
+               neighbours of the shared-memory / L2 level split, and the
+               reference's deepest) on a 22-tree one, x batch
+               {1,7,64,328,4096}, rtol 1e-5 / atol 1e-6, bitwise
+               repeatable, a row's bits independent of its batch
   serve        ForestEngine on the card (backend "hopper"): batched predict,
                a burst of async singles, cache hits, a hot-swap, then
                MultiDeviceEngine pricing and scheduling; answers held to the
                plain CPU dense path; launch counter read around the run
-  timing       forest kernel, plain-version and engine times at B = 64 / 328 /
-               4096, beside the least time the card could take (the bound)
+  timing       forest kernel (tables packed once), plain-version, backend
+               (``engine._predict_fn``: copies, kernel, sync) and engine
+               times at B = 64 / 328 / 4096, beside the least time the card
+               could take (the bound)
   ssd_kernel   the SSD kernel against its plain version (``ssd_chunked``) on
                the same CUDA tensors at 80 heads of 64, state 64: (Bsz, S) in
                {(1,1), (1,100), (1,500), (4,512), (2,2048)}, f32 and bf16, one
@@ -90,6 +96,13 @@ FIXTURE = REPO / "tests" / "fixtures" / "suite_dataset_v1.json"
 N_TREES = 512            # the reference's paper profile (bench_latency.py)
 DEPTH = 10               # EngineConfig.dense_depth
 DEPTHS = (2, 5, 8, 10)
+# the kernel keeps every level of a depth-11 tree in shared memory and the
+# top 11 levels of a deeper one (kernels/forest/kernel.py::split_levels):
+# both sides of that split, and the reference's deepest test, on a forest
+# small enough for to_dense to stay quick, whose tree count leaves the last
+# tree group ragged
+DEEP_DEPTHS = (11, 12, 14)
+DEEP_TREES = 22
 BATCHES = (1, 7, 64, 328, 4096)
 TIMED_BATCHES = (64, 328, 4096)
 RTOL, ATOL = 1e-5, 1e-6
@@ -155,8 +168,10 @@ TRAIN_CALL_REL = {"flash_attention": (2 ** -7,), "ssd_scan": (2 ** -7, 1e-3)}
 TRAIN_F32_BATCH, TRAIN_F32_SEQ = 1, 512
 
 # the CUDA kernels each wrapper call launches, by the name the profiler
-# shows: the SSD scan's bf16 entry runs three passes, its f32 entry one
-# kernel; flash attention one kernel per entry
+# shows: the forest walk and the sum of its groups' partials; the SSD scan's
+# bf16 entry runs three passes, its f32 entry one kernel; flash attention
+# one kernel per entry
+FOREST_KERNELS = ("forest_walk_kernel", "forest_sum_kernel")
 SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
                "ssd_chunk_out_kernel", "ssd_chunk_kernel")
 FLASH_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel")
@@ -942,7 +957,8 @@ def main() -> int:
     from repro_torch.kernels.forest import kernel as fk
     from repro_torch.kernels.forest import ops
     from repro_torch.kernels.mamba import kernel as sk
-    from repro_torch.kernels.forest.ref import forest_predict_ref
+    from repro_torch.kernels.forest.ref import (forest_predict_packed_ref,
+                                                forest_predict_ref)
     from repro_torch.serve import ForestEngine, MultiDeviceEngine
 
     dev = torch.device("cuda")
@@ -974,7 +990,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          commands=[" ".join(i.command) for i in infos],
          ptxas={i.library.stem: ptxas(i) for i in infos},
-         tensor_core_instructions=tc, tree_stride=fk.TREE_STRIDE)
+         tensor_core_instructions=tc, tree_group=fk.TREE_GROUP)
     if not all(found.values()):
         raise AssertionError(f"bf16 kernels without tensor-core "
                              f"instructions: {found}")
@@ -992,8 +1008,11 @@ def main() -> int:
                                    max_features="max",
                                    seed=seed).fit(X, np.log(y))
     est, est_swap, est_dev1 = fit(y0, 0), fit(y0, 1), fit(y1, 0)
-    if N_TREES % fk.TREE_STRIDE == 0:
-        raise AssertionError("tree count must leave the last tree stride "
+    est_deep = ExtraTreesRegressor(n_estimators=DEEP_TREES, criterion="mse",
+                                   max_features="max",
+                                   seed=2).fit(X, np.log(y0))
+    if DEEP_TREES % fk.TREE_GROUP == 0:
+        raise AssertionError("tree count must leave the last tree group "
                              "ragged, to exercise the padding path")
     emit("fit", seconds=time.perf_counter() - t0, rows=int(X.shape[0]),
          features=int(X.shape[1]), trees=N_TREES,
@@ -1018,17 +1037,20 @@ def main() -> int:
         raw = (torch.as_tensor(d.feature, device=dev),
                torch.as_tensor(d.threshold, device=dev),
                torch.as_tensor(d.value, device=dev))
-        return raw, ops.pad_trees(*raw)
+        return raw, ops.pack_tables(*raw, depth=depth,
+                                    n_features=d.n_features)
 
     max_err = 0.0
     results = []
-    for depth in DEPTHS:
-        raw, padded = tables(depth)
+    packed_ref_equal = 0
+    for depth, estimator in ([(d, est) for d in DEPTHS]
+                             + [(d, est_deep) for d in DEEP_DEPTHS]):
+        raw, packed = tables(depth, estimator)
+        trees = len(estimator.trees_)
         for B in BATCHES:
             x = torch.as_tensor(rows(B), device=dev)
-            out = ops.forest_predict(x, *padded, depth=depth, n_trees=N_TREES)
-            again = ops.forest_predict(x, *padded, depth=depth,
-                                       n_trees=N_TREES)
+            out = ops.forest_predict_packed(x, packed)
+            again = ops.forest_predict_packed(x, packed)
             plain = forest_predict_ref(x, *raw, depth)
             torch.cuda.synchronize()
             torch.testing.assert_close(out, plain, rtol=RTOL, atol=ATOL)
@@ -1036,27 +1058,37 @@ def main() -> int:
                 raise AssertionError(f"kernel not repeatable at depth "
                                      f"{depth}, B={B}")
             if B > 7:
-                head = ops.forest_predict(x[:7].contiguous(), *padded,
-                                          depth=depth, n_trees=N_TREES)
+                head = ops.forest_predict_packed(x[:7].contiguous(), packed)
                 if not torch.equal(head, out[:7]):
                     raise AssertionError("a row's answer depends on its batch")
+            # the plain walk over the packed tables adds in the kernel's
+            # order: reported, the tolerance above is the check
+            same = torch.equal(out, forest_predict_packed_ref(x, packed))
+            packed_ref_equal += same
             err = float((out - plain).abs().max())
             max_err = max(max_err, err)
-            results.append({"depth": depth, "B": B, "max_abs_err": err,
-                            "tile_rows": fk.tile_rows(B)})
+            results.append({"depth": depth, "trees": trees, "B": B,
+                            "split": packed.split, "max_abs_err": err,
+                            "packed_ref_bitwise": same,
+                            "tile_rows": fk.tile_rows(packed, B)})
+        # the dense entry point packs per call and gives the same bits
+        if not torch.equal(ops.forest_predict(x, *raw, depth=depth), out):
+            raise AssertionError(f"dense and packed calls differ at depth "
+                                 f"{depth}")
     # non-finite features follow ref.py: NaN goes right, an inf in another
     # column leaves the walk alone
-    raw, padded = tables(DEPTH)
+    raw, packed = tables(DEPTH)
     x = torch.as_tensor(rows(64), device=dev).clone()
     x[0, :] = float("nan")
     x[1, 3] = float("inf")
     x[2, 5] = float("-inf")
     x[3, 0] = float("nan")
-    out = ops.forest_predict(x, *padded, depth=DEPTH, n_trees=N_TREES)
+    out = ops.forest_predict_packed(x, packed)
     plain = forest_predict_ref(x, *raw, DEPTH)
     torch.testing.assert_close(out, plain, rtol=RTOL, atol=ATOL)
     emit("kernel", cases=len(results), max_abs_err=max_err, rtol=RTOL,
-         atol=ATOL, results=results, nonfinite_rows="ok")
+         atol=ATOL, packed_ref_bitwise=packed_ref_equal, results=results,
+         nonfinite_rows="ok")
 
     # ------------------------------------------------------------- serve
     def plain_cpu(estimator, Z):
@@ -1123,19 +1155,21 @@ def main() -> int:
     mde.close()
 
     # ------------------------------------------------------------ timing
-    raw, padded = tables(DEPTH)
+    raw, packed = tables(DEPTH)
     timing = []
     for B in TIMED_BATCHES:
         x = torch.as_tensor(rows(B), device=dev)
         def launch():
-            return ops.forest_predict(x, *padded, depth=DEPTH,
-                                      n_trees=N_TREES)
+            return ops.forest_predict_packed(x, packed)
         k_ms = cuda_ms(launch, iters=200, warmup=20)
-        d_ms = kernel_device_ms(launch, "forest_kernel")
+        d_ms = kernel_device_ms(launch, FOREST_KERNELS)
         p_ms = cuda_ms(lambda: forest_predict_ref(x, *raw, DEPTH),
                        iters=20, warmup=3)
         b_ms, b_by, work = bound(x, *raw[:2], DEPTH)
-        # one engine call on uncached rows: launches and host-clock latency
+        # one engine call on uncached rows: launches and host-clock
+        # latency, and the backend call alone (rows to the card, the
+        # kernel, answers back): engine_ms - backend_ms is the engine's
+        # per-row pass, backend_ms - ms the copies and the sync
         with ForestEngine(est, device="cuda", cache_size=0) as eng:
             xs = rows(B)
             eng.predict(xs)
@@ -1147,11 +1181,17 @@ def main() -> int:
             for _ in range(n):
                 eng.predict(xs)
             e_ms = (time.perf_counter() - t0) / n * 1e3
+            t0 = time.perf_counter()
+            for _ in range(n):
+                eng._predict_fn(xs)
+            be_ms = (time.perf_counter() - t0) / n * 1e3
         timing.append({"B": B, "ms": k_ms, "device_ms": d_ms,
                        "plain_ms": p_ms, "bound_ms": b_ms,
                        "bound_by": b_by, **work, "launches_per_call": per_call,
-                       "engine_ms": e_ms, "engine_rows_per_s": B / e_ms * 1e3,
-                       "library_ms": None, "tile_rows": fk.tile_rows(B)})
+                       "engine_ms": e_ms, "backend_ms": be_ms,
+                       "engine_rows_per_s": B / e_ms * 1e3,
+                       "library_ms": None, "tile_rows": fk.tile_rows(packed, B),
+                       "table_bytes": packed.nbytes})
         emit("timing", **timing[-1], depth=DEPTH, trees=N_TREES, card=smi)
 
     # ---------------------------------------------------- the LM path
@@ -1180,7 +1220,8 @@ def main() -> int:
         "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
         "library_ms": None, "batch": main_b["B"], "depth": DEPTH,
-        "trees": N_TREES}, {
+        "trees": N_TREES, "table_bytes": main_b["table_bytes"],
+        "cuda_kernels": list(FOREST_KERNELS)}, {
         "name": "ssd_scan_bf16", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/mamba/kernel.py:30",

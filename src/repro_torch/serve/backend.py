@@ -138,15 +138,14 @@ def build_backends(est: ExtraTreesRegressor, *, dense_depth: int = 10,
 
 
 def _hopper(dense, dev: torch.device) -> PredictorBackend:
-    """The kernel path: tables go to ``dev`` once, padded once to the
-    kernel's tree stride; each call moves only the rows and the answers."""
-    from ..kernels.forest.ops import forest_predict, pad_trees
+    """The kernel path: the tables are checked and packed on ``dev`` once
+    (``pack_tables``); each call checks and moves only the rows and the
+    answers."""
+    from ..kernels.forest.ops import forest_predict_packed, pack_tables
 
-    feature, threshold, value = pad_trees(
+    packed = pack_tables(
         torch.as_tensor(dense.feature, dtype=torch.int32, device=dev),
         torch.as_tensor(dense.threshold, dtype=torch.float32, device=dev),
-        torch.as_tensor(dense.value, dtype=torch.float32, device=dev))
-    n_trees, depth = dense.n_trees, dense.depth
-    return _numpy_io(lambda x: forest_predict(x, feature, threshold, value,
-                                              depth=depth, n_trees=n_trees),
-                     dev)
+        torch.as_tensor(dense.value, dtype=torch.float32, device=dev),
+        depth=dense.depth, n_features=dense.n_features)
+    return _numpy_io(lambda x: forest_predict_packed(x, packed), dev)

@@ -18,9 +18,9 @@ from repro_torch.core import convert
 from repro_torch.core.forest_torch import to_dense
 from repro_torch.kernels.forest import (forest_predict,
                                         forest_predict_from_dense,
-                                        forest_predict_ref, ops, pad_trees)
-from repro_torch.kernels.forest.kernel import (TREE_STRIDE,
-                                               forest_predict_kernel)
+                                        forest_predict_packed,
+                                        forest_predict_ref, ops, pack_tables)
+from repro_torch.kernels.forest.kernel import TREE_GROUP
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -91,24 +91,39 @@ def test_nonfinite_rows_follow_ref(fitted):
     assert np.isfinite(got).all()
 
 
+def _pad(tables, rows):
+    """The contract's inert trees: feature 0, threshold +inf, value 0."""
+    f, t, v = tables
+    n, N = f.shape
+    return (torch.cat([f, f.new_zeros((rows - n, N))]),
+            torch.cat([t, t.new_full((rows - n, N), float("inf"))]),
+            torch.cat([v, v.new_zeros((rows - n, N))]))
+
+
 @pytest.mark.parametrize("n_trees", [1, 12])
 def test_padding_contract(fitted, n_trees):
     """Inert padded trees (feature 0, threshold +inf, value 0) change
-    nothing when the sum is divided by the real tree count."""
+    nothing when the sum is divided by the real tree count: past
+    ``n_trees`` the tables are never read, and the packed tables pad to
+    the kernel's tree group with inert trees of their own."""
     _, port = fitted
     dense = to_dense(port, 6, n_trees=n_trees)
     X = torch.as_tensor(np.random.default_rng(6).lognormal(
         1, 1.5, size=(9, 12)).astype(np.float32))
-    f, t, v = pad_trees(*_tables(dense))
-    assert f.shape[0] == TREE_STRIDE
-    assert (f[n_trees:] == 0).all() and torch.isinf(t[n_trees:]).all()
-    assert (v[n_trees:] == 0).all()
+    f, t, v = _pad(_tables(dense), 3 * TREE_GROUP + 1)
     plain = forest_predict(X, *_tables(dense), depth=6)
     padded = forest_predict(X, f, t, v, depth=6, n_trees=n_trees)
     torch.testing.assert_close(padded, plain, rtol=0, atol=0)
     # summing the inert rows as trees gives the same total
     total = forest_predict_ref(X, f, t, v, 6) * f.shape[0]
     torch.testing.assert_close(total / n_trees, plain, rtol=RTOL, atol=ATOL)
+    packed = pack_tables(f, t, v, depth=6, n_trees=n_trees, n_features=12)
+    assert packed.n_trees == n_trees
+    assert packed.nodes.shape[0] == -(-n_trees // TREE_GROUP) * TREE_GROUP
+    assert (packed.leaves[n_trees:] == 0).all()
+    assert (packed.nodes[n_trees:, :, 1] == -1).all()
+    torch.testing.assert_close(forest_predict_packed(X, packed), plain,
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_cpu_path_launches_nothing(fitted):
@@ -120,12 +135,13 @@ def test_cpu_path_launches_nothing(fitted):
 
 def test_kernel_wrapper_checks_inputs(fitted):
     _, port = fitted
-    f, t, v = pad_trees(*_tables(to_dense(port, 4)))
+    tables = _tables(to_dense(port, 4))
+    packed = pack_tables(*tables, depth=4, n_features=12)
     x = torch.ones(3, 12)
-    with pytest.raises(ValueError, match="CUDA"):
-        forest_predict_kernel(x, f, t, v, depth=4, n_trees=12)
+    with pytest.raises(ValueError, match="packed forest on cpu"):
+        forest_predict_packed(x.to("meta"), packed)
     with pytest.raises(ValueError):
-        forest_predict(x.to(torch.float64).to("meta"), f, t, v, depth=4)
+        forest_predict(x.to(torch.float64).to("meta"), *tables, depth=4)
 
 
 @pytest.mark.gpu
@@ -136,13 +152,13 @@ def test_kernel_matches_plain_on_card(fitted):
     rng = np.random.default_rng(7)
     for depth in (2, 5, 8, 10):
         raw = [t.cuda() for t in _tables(to_dense(port, depth))]
-        padded = pad_trees(*raw)
+        packed = pack_tables(*raw, depth=depth, n_features=12)
         for batch in (1, 7, 32, 1000):
             x = torch.as_tensor(rng.lognormal(1, 1.5, size=(batch, 12)),
                                 dtype=torch.float32, device="cuda")
             before = ops.launches
-            got = forest_predict(x, *padded, depth=depth, n_trees=12)
-            again = forest_predict(x, *padded, depth=depth, n_trees=12)
+            got = forest_predict_packed(x, packed)
+            again = forest_predict(x, *raw, depth=depth, n_trees=12)
             want = forest_predict_ref(x, *raw, depth)
             torch.cuda.synchronize()
             assert ops.launches == before + 2
