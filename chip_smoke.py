@@ -40,6 +40,18 @@ Phases, one JSON line each:
                (``engine._predict_fn``: copies, kernel, sync) and engine
                times at B = 64 / 328 / 4096, beside the least time the card
                could take (the bound)
+  frontend_*   the pipeline's front end (``repro_torch.workloads.suite``,
+               ``repro_torch.core.features``): the suite's 328 workloads run
+               once on the card, each held to the same function on host
+               copies of its inputs (frontend_run); the features of each,
+               exported with inputs on the card and on the host in worker
+               processes, equal (frontend_extract); io_bytes and the dense
+               kernels' flops held to the fixture, the rank correlation of
+               each feature with it (frontend_parity); the port's feature
+               rows served through B1 by each device's forest, held to the
+               plain CPU dense path, launches counted, the median APE
+               against the fixture's targets beside the same forest's on
+               the fixture's rows (frontend_serve)
   ssd_kernel   the SSD kernel against its plain version (``ssd_chunked``) on
                the same CUDA tensors at 80 heads of 64, state 64: (Bsz, S) in
                {(1,1), (1,100), (1,500), (4,512), (2,2048)}, f32 and bf16, one
@@ -166,6 +178,15 @@ TRAIN_CALL_REL = {"flash_attention": (2 ** -7,), "ssd_scan": (2 ** -7, 1e-3)}
 # H100, so the whole step cannot tell it from a correct kernel and the
 # in-place checks carry correctness
 TRAIN_F32_BATCH, TRAIN_F32_SEQ = 1, 512
+
+# the pipeline's front end: the suite's workloads run on the card and held
+# to the host (integers exactly, float32 within this share of the host
+# output's largest value, TF32 off); their features extracted in worker
+# processes; aux.flops held exactly on the dense linear-algebra and
+# convolution kernels, as the CPU tests hold it
+FRONTEND_F32_REL = 1e-4
+FRONTEND_WORKERS = 6
+FLOPS_EXACT = {"gemm", "2mm", "3mm", "syrk", "syr2k", "2dconv", "3dconv"}
 
 # the CUDA kernels each wrapper call launches, by the name the profiler
 # shows: the forest walk and the sum of its groups' partials; the SSD scan's
@@ -939,6 +960,215 @@ def train_timing_phase(dev, trained: dict, smi: str) -> dict:
     return {"flash": flash, "ssd": ssd}
 
 
+def extract_slice(indices: list) -> list:
+    """Features of the suite's workloads ``indices``, exported with their
+    inputs on the card and again with them on the host; a worker of the
+    frontend phase (its own process, so that the exports run side by
+    side)."""
+    sys.path.insert(0, str(REPO / "src"))
+    import warnings
+
+    from repro_torch.core.features import LaunchConfig, extract
+    from repro_torch.workloads.suite import suite
+    warnings.filterwarnings("ignore", category=FutureWarning)
+    ws = suite(device="cpu")
+    out = []
+    for i in indices:
+        w = ws[i]
+        launch = LaunchConfig(work_items=w.work_items)
+        res = {"index": i}
+        for side, args in (("cuda", [a.cuda() for a in w.args]),
+                           ("cpu", list(w.args))):
+            t0 = time.perf_counter()
+            fv = extract(w.fn, *args, launch=launch)
+            res[side] = {"values": fv.values.tolist(), "aux": fv.aux,
+                         "ms": (time.perf_counter() - t0) * 1e3}
+        out.append(res)
+    return out
+
+
+def hold_search_edges(w, got, want) -> str | None:
+    """particlefilter's indices, searchsorted of u into the cumsum c of the
+    weights: the card sums c in float32, the host accumulates in double, so
+    a query near a cell's edge may land in another cell. Each card index
+    must be a right answer for some c within the float32 tolerance of the
+    host's: c[i - 1] < u + tol and c[i] >= u - tol, tol being
+    FRONTEND_F32_REL of c's largest value (None when it holds)."""
+    import torch
+    x = w.args[0].cpu()
+    c = torch.cumsum(x / x.sum(), 0)
+    n = c.shape[0]
+    u = (torch.arange(n, dtype=torch.int32) + 0.5) / n
+    tol = FRONTEND_F32_REL * float(c[-1])
+    i = got.cpu().long()
+    below = (i == 0) | (c[(i - 1).clamp(min=0)] < u + tol)
+    above = (i >= n) | (c[i.clamp(max=n - 1)] >= u - tol)
+    bad = int((~(below & above)).sum())
+    return f"{bad} indices no cumsum within {tol} gives" if bad else None
+
+
+# workloads held otherwise than exactly or at the float32 tolerance
+FRONTEND_HOLDS = {"particlefilter": hold_search_edges}
+
+
+def hold_output(got, want) -> str | None:
+    """Why a card output is not the host's (None when it is): integers
+    exactly, float32 within FRONTEND_F32_REL of the host output's largest
+    value."""
+    import torch
+    got, want = got.cpu(), want.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return f"{got.dtype}{tuple(got.shape)} vs {want.dtype}{tuple(want.shape)}"
+    if not want.is_floating_point() and not want.is_complex():
+        bad = int((got != want).sum())
+        return f"{bad} of {want.numel()} integers differ" if bad else None
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    if not bool(torch.isfinite(got).all()) or err > FRONTEND_F32_REL * scale:
+        return f"max abs error {err} of largest value {scale}"
+    return None
+
+
+def spearman(a, b) -> float | None:
+    """Rank correlation, ties taking their mean rank (None when either side
+    is constant)."""
+    import numpy as np
+    from scipy.stats import rankdata
+    ra, rb = rankdata(a), rankdata(b)
+    if np.ptp(ra) == 0 or np.ptp(rb) == 0:
+        return None
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def frontend_phase(engines: dict, fixture: list, smi: str) -> dict:
+    """The pipeline's front end on the card: the port's 328 workloads run
+    on the card and held to the host; their features extracted with inputs
+    on the card and on the host (equal), held to the fixture (io_bytes on
+    all, flops on the dense linear-algebra and convolution kernels); the
+    port's feature rows served through B1 for each device's forest."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.features import FEATURE_NAMES
+    from repro_torch.core.forest_torch import DenseForestTorch, to_dense
+    from repro_torch.kernels.forest import ops
+    from repro_torch.serve import ForestEngine
+    from repro_torch.workloads.suite import suite
+
+    t_phase = time.perf_counter()
+    # (b) runs in worker processes beside (a)
+    n_work = len(suite(sizes=("s",), device="cpu")) * 4
+    chunks = [list(range(i, n_work, FRONTEND_WORKERS))
+              for i in range(FRONTEND_WORKERS)]
+    with ProcessPoolExecutor(FRONTEND_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")
+                             ) as pool:
+        futures = [pool.submit(extract_slice, c) for c in chunks]
+
+        # (a) every workload once on the card, held to the host
+        t0 = time.perf_counter()
+        ws = suite(device="cuda")
+        run_ms, unheld, held_otherwise = [], {}, {}
+        for w in ws:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = w.fn(*w.args)
+            torch.cuda.synchronize()
+            run_ms.append((time.perf_counter() - t1) * 1e3)
+            host = w.fn(*[a.cpu() for a in w.args])
+            outs = out if isinstance(out, tuple) else (out,)
+            hosts = host if isinstance(host, tuple) else (host,)
+            key = f"{w.kernel}/{w.variant}"
+            why = [r for g, h in zip(outs, hosts)
+                   if (r := hold_output(g, h))]
+            if why and w.kernel in FRONTEND_HOLDS:
+                held_otherwise[key] = why
+                why = [r for g, h in zip(outs, hosts)
+                       if (r := FRONTEND_HOLDS[w.kernel](w, g, h))]
+            if len(outs) != len(hosts) or why:
+                unheld[key] = why or ["output count"]
+        run_s = time.perf_counter() - t0
+        slowest = sorted(zip(run_ms, ws), key=lambda p: -p[0])[:5]
+        results = sorted((r for f in futures for r in f.result()),
+                         key=lambda r: r["index"])
+    extract_s = time.perf_counter() - t0
+    emit("frontend_run", workloads=len(ws), seconds=run_s,
+         slowest=[{"workload": f"{w.kernel}/{w.variant}", "ms": ms}
+                  for ms, w in slowest],
+         f32_rel_tol=FRONTEND_F32_REL, not_held=unheld,
+         held_otherwise={k: {"exact_check": v, "held_by": FRONTEND_HOLDS[
+             k.split("/")[0]].__name__} for k, v in held_otherwise.items()})
+    failures = []
+    if unheld:
+        failures.append(f"card outputs off the host's: {unheld}")
+
+    # (b) card-side and host-side features are equal
+    differ = [f"{ws[r['index']].kernel}/{ws[r['index']].variant}"
+              for r in results if r["cuda"]["values"] != r["cpu"]["values"]
+              or r["cuda"]["aux"] != r["cpu"]["aux"]]
+    ms = np.array([r[side]["ms"] for r in results for side in ("cuda", "cpu")])
+    emit("frontend_extract", workloads=len(results), workers=FRONTEND_WORKERS,
+         seconds=extract_s, ms_median=float(np.median(ms)),
+         ms_max=float(ms.max()), card_vs_host_differ=differ)
+    if len(results) != len(ws) or differ:
+        failures.append(f"features differ between card and host: {differ}")
+
+    # (c) the fixture's exact checks on this torch, and rank correlations
+    by_key = {(r["app"], r["kernel"], r["variant"]): r for r in fixture}
+    refs = [by_key[(w.app, w.kernel, w.variant)] for w in ws]
+    io_bad = [f"{w.kernel}/{w.variant}" for w, r, f in zip(ws, results, refs)
+              if r["cpu"]["aux"]["io_bytes"] != f["aux"]["io_bytes"]]
+    flops_bad = [f"{w.kernel}/{w.variant}"
+                 for w, r, f in zip(ws, results, refs)
+                 if w.kernel in FLOPS_EXACT
+                 and r["cpu"]["aux"]["flops"] != f["aux"]["flops"]]
+    X_port = np.array([r["cpu"]["values"] for r in results])
+    X_fix = np.array([f["features"] for f in refs])
+    rho = {n: spearman(X_port[:, j], X_fix[:, j])
+           for j, n in enumerate(FEATURE_NAMES)}
+    emit("frontend_parity", io_bytes_exact=len(ws) - len(io_bad),
+         io_bytes_off=io_bad, flops_exact_kernels=sorted(FLOPS_EXACT),
+         flops_off=flops_bad, spearman=rho)
+    if io_bad or flops_bad:
+        failures.append(f"io_bytes off {io_bad}, flops off {flops_bad}")
+
+    # (d) the port's rows served through B1, for each device's forest
+    rows = X_port.astype(np.float32)
+    served, batches = {}, 0
+    ops.launches = 0                       # count the main path's launches
+    for name, est in engines.items():
+        with ForestEngine(est, device="cuda") as eng:
+            if eng.backend != "hopper":
+                raise AssertionError(f"engine serves on {eng.backend!r}")
+            log_t = eng.predict(rows)
+            own = eng.predict(X_fix.astype(np.float32))
+            batches += eng.stats.batches
+        plain = DenseForestTorch(to_dense(est, DEPTH), device="cpu")
+        np.testing.assert_allclose(log_t, plain(rows).numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=f"{name} port rows")
+        target = np.array([f["targets"][name]["time_us"] for f in refs])
+        served[name] = {
+            "median_ape_port_rows": float(np.median(
+                np.abs(np.exp(log_t) - target) / target)),
+            "median_ape_fixture_rows": float(np.median(
+                np.abs(np.exp(own) - target) / target))}
+    torch.cuda.synchronize()
+    launches = ops.launches
+    if launches < batches or launches == 0:
+        failures.append(f"{launches} forest kernel launches for {batches} "
+                        f"engine batches")
+    emit("frontend_serve", rows=int(len(rows)), devices=list(engines),
+         kernel_launches=launches, engine_batches=batches, served=served,
+         rtol=RTOL, atol=ATOL,
+         phase_seconds=time.perf_counter() - t_phase, card=smi)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1194,6 +1424,10 @@ def main() -> int:
                        "table_bytes": packed.nbytes})
         emit("timing", **timing[-1], depth=DEPTH, trees=N_TREES, card=smi)
 
+    # ------------------------------------------------------- front end
+    front = frontend_phase({dev0: est, dev1: est_dev1},
+                           json.loads(FIXTURE.read_text()), smi)
+
     # ---------------------------------------------------- the LM path
     ssd = ssd_kernel_phase(dev)
     served = lm_serve_phase(dev)
@@ -1219,7 +1453,8 @@ def main() -> int:
         "ms": main_b["ms"], "device_ms": main_b["device_ms"],
         "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
-        "library_ms": None, "batch": main_b["B"], "depth": DEPTH,
+        "library_ms": None, "frontend_launches": front["launches"],
+        "batch": main_b["B"], "depth": DEPTH,
         "trees": N_TREES, "table_bytes": main_b["table_bytes"],
         "cuda_kernels": list(FOREST_KERNELS)}, {
         "name": "ssd_scan_bf16", "route": "cuda",

@@ -4,7 +4,8 @@ PyTorch/CUDA port.
 ``devices``, ``forest``, ``metrics``, ``split``, ``dataset``, ``simulate``,
 ``power`` and ``scheduler`` are numpy-only copies of their ``repro.core``
 counterparts (the port must not import ``repro``, whose ``core`` package
-imports JAX); ``features`` holds the feature definitions only.
+imports JAX); ``features`` extracts the 12 features from a
+``torch.export`` graph, as the reference's does from StableHLO.
 ``forest_torch`` and ``latency`` are the torch counterparts of
 ``forest_jax`` and ``latency``; ``convert`` carries a fitted forest across
 from the reference."""
@@ -12,7 +13,8 @@ from .convert import (dense_from_arrays, estimator_from_arrays,
                       lm_params_from_arrays)
 from .dataset import Dataset, Sample
 from .devices import DEVICE_MODELS, SIMULATED_DEVICES, DeviceModel
-from .features import FEATURE_NAMES, N_FEATURES, FeatureVector, LaunchConfig
+from .features import (FEATURE_NAMES, N_FEATURES, FeatureVector, LaunchConfig,
+                       OpTally, extract, extract_from_program)
 from .forest import ExtraTreesRegressor, FlatForest, LinearBaseline, predict_flat
 from .forest_torch import DenseForest, DenseForestTorch, FlatForestTorch, to_dense
 from .metrics import error_buckets, mape, median_ape

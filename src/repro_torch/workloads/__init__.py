@@ -1,0 +1,2 @@
+"""repro_torch.workloads — the compute-kernel workload suite in torch
+(``suite``, the port of ``repro.workloads.suite``)."""
