@@ -52,6 +52,27 @@ Phases, one JSON line each:
                plain CPU dense path, launches counted, the median APE
                against the fixture's targets beside the same forest's on
                the fixture's rows (frontend_serve)
+  ground_truth the pipeline's ground truth (``workloads/collect.py``): the
+               suite's 246 workloads at sizes s, m and l timed on the card
+               (a warm-up call, then the median and CoV of 5 timed calls,
+               by CUDA events) beside the simulated TPUs' targets; every
+               card time finite and positive, no dynamo compile inside
+               the timed calls, the simulated targets replayed bit for bit
+               from a fresh rng, the features equal to frontend_extract's
+  ground_truth_serve  a 512-tree forest fitted on the log of the card's
+               times, served through B1 on the 246 rows, held to the plain
+               CPU dense path, launches counted, in-sample median APE
+  stream_refresh  the suite at s measured on a collector thread into a
+               ``DatasetStore`` while an ``EngineRefresher`` refits a
+               32-tree forest and hot-swaps it into a live engine on the
+               card, a reader thread predicting all the while: no error,
+               at least 2 refreshes, every answered batch one generation's
+               whole answer, B1 launches counted, the engine after the
+               stream equal to a refit of the last snapshot, the streamed
+               features equal to ground_truth's
+  ground_truth_cv  nested CV (``core/cv.py``, the reference's fast grid) on
+               the card's times and on tpu-v5e's simulated times, in a
+               worker process beside the LM phases (reported, not held)
   ssd_kernel   the SSD kernel against its plain version (``ssd_chunked``) on
                the same CUDA tensors at 80 heads of 64, state 64: (Bsz, S) in
                {(1,1), (1,100), (1,500), (4,512), (2,2048)}, f32 and bf16, one
@@ -95,10 +116,11 @@ exits non-zero before printing any result. The kernels build into
 from __future__ import annotations
 
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -187,6 +209,26 @@ TRAIN_F32_BATCH, TRAIN_F32_SEQ = 1, 512
 FRONTEND_F32_REL = 1e-4
 FRONTEND_WORKERS = 6
 FLOPS_EXACT = {"gemm", "2mm", "3mm", "syrk", "syr2k", "2dconv", "3dconv"}
+
+# the pipeline's ground truth: the suite timed on the card at the
+# reference's fast profile (``load_or_collect(fast=True)``: sizes s, m and
+# l, 5 repeats; xl waits, where nw alone would take about 90 s), seed 0;
+# nested CV on those times with the grid of the reference's fast benchmark
+# profile (``benchmarks/common.py::cv_config``), beside the same CV on a
+# simulated TPU's times from the same dataset as a yardstick; then the
+# stream: the suite at s measured on a collector thread into a store while
+# a refresher refits a 32-tree forest and hot-swaps it into a live engine
+GT_SIZES = ("s", "m", "l")
+GT_REPEATS = 5
+CV_GRID = {"criterion": ["mse", "mae"], "max_features": ["max", "log2", "sqrt"],
+           "n_estimators": [16, 32]}
+CV_CONFIG = dict(outer_folds=3, inner_folds=2, iterations=2, time_split=True,
+                 log_target=True)
+CV_YARDSTICK = "tpu-v5e"
+STREAM_SIZES = ("s",)
+STREAM_TREES = 32
+STREAM_CHUNK = 8
+STREAM_MIN_SAMPLES = 8
 
 # the CUDA kernels each wrapper call launches, by the name the profiler
 # shows: the forest walk and the sum of its groups' partials; the SSD scan's
@@ -289,6 +331,16 @@ def bound(x, feature, threshold, depth: int) -> tuple[float, str, dict]:
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, {"bytes": n_bytes, "ops": n_ops}
+
+
+def plain_cpu(estimator, Z):
+    """The plain CPU dense path of ``estimator`` at depth DEPTH on rows
+    ``Z``: what the forest engine's answers on the card are held to."""
+    import numpy as np
+
+    from repro_torch.core.forest_torch import DenseForestTorch, to_dense
+    return DenseForestTorch(to_dense(estimator, DEPTH),
+                            device="cpu")(Z).numpy().astype(np.float64)
 
 
 def profile_breakdown(fn, find: dict | None = None, top: int = 8) -> dict:
@@ -1046,14 +1098,10 @@ def frontend_phase(engines: dict, fixture: list, smi: str) -> dict:
     on the card and on the host (equal), held to the fixture (io_bytes on
     all, flops on the dense linear-algebra and convolution kernels); the
     port's feature rows served through B1 for each device's forest."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     import numpy as np
     import torch
 
     from repro_torch.core.features import FEATURE_NAMES
-    from repro_torch.core.forest_torch import DenseForestTorch, to_dense
     from repro_torch.kernels.forest import ops
     from repro_torch.serve import ForestEngine
     from repro_torch.workloads.suite import suite
@@ -1146,8 +1194,7 @@ def frontend_phase(engines: dict, fixture: list, smi: str) -> dict:
             log_t = eng.predict(rows)
             own = eng.predict(X_fix.astype(np.float32))
             batches += eng.stats.batches
-        plain = DenseForestTorch(to_dense(est, DEPTH), device="cpu")
-        np.testing.assert_allclose(log_t, plain(rows).numpy(), rtol=RTOL,
+        np.testing.assert_allclose(log_t, plain_cpu(est, rows), rtol=RTOL,
                                    atol=ATOL, err_msg=f"{name} port rows")
         target = np.array([f["targets"][name]["time_us"] for f in refs])
         served[name] = {
@@ -1166,6 +1213,335 @@ def frontend_phase(engines: dict, fixture: list, smi: str) -> dict:
          phase_seconds=time.perf_counter() - t_phase, card=smi)
     if failures:
         raise AssertionError("; ".join(failures))
+    return {"launches": launches,
+            "features": {(w.app, w.kernel, w.variant): r["cpu"]
+                         for w, r in zip(ws, results)}}
+
+
+def ground_truth_phase(dev, host_features: dict, smi: str) -> dict:
+    """The pipeline's ground truth on the card: ``collect`` over the suite
+    at GT_SIZES, each workload timed by CUDA events (one warm-up call, then
+    GT_REPEATS timed calls) beside the simulated TPUs' targets. Holds every
+    card time finite and positive, no dynamo compile inside timed repeats,
+    the simulated targets replayed bit for bit from a fresh rng over the
+    collected features (the timing leaves the rng alone), and the features
+    equal to the front end's host-side exports."""
+    import numpy as np
+
+    from repro_torch.core.devices import SIMULATED_DEVICES
+    from repro_torch.core.features import FEATURE_NAMES, FeatureVector
+    from repro_torch.core.power import simulate_power_mean_w
+    from repro_torch.core.simulate import simulate_time_median_us
+    from repro_torch.workloads import collect as gt
+    from repro_torch.workloads.suite import suite
+
+    card = gt.measured_device(dev)
+    gt.stats = gt.CollectStats()             # count this run's work alone
+    t0 = time.perf_counter()
+    ds = gt.collect(suite(sizes=GT_SIZES, device=dev), repeats=GT_REPEATS,
+                    measure_cpu=True, seed=0)
+    wall_s = time.perf_counter() - t0
+    st = gt.stats
+    failures = []
+
+    times = np.array([s.targets.get(card, {}).get("time_us", np.nan)
+                      for s in ds.samples])
+    covs = np.array([s.targets.get(card, {}).get("time_cov", np.nan)
+                     for s in ds.samples])
+    bad_times = [f"{s.kernel}/{s.variant}" for s, t in zip(ds.samples, times)
+                 if not (np.isfinite(t) and t > 0)]
+    if bad_times:
+        failures.append(f"card times not finite and positive: {bad_times}")
+    if st.timed_compiles:
+        failures.append(f"dynamo compiled inside timed repeats: "
+                        f"{st.timed_compiles}")
+
+    # the simulated targets, replayed from a fresh rng over the features
+    rng = np.random.default_rng(0)
+    replay_off = []
+    for s in ds.samples:
+        spec = gt.spec_from_features(FeatureVector(s.features, s.aux),
+                                     s.aux["work_items"])
+        for d in SIMULATED_DEVICES:
+            t_us, tcov = simulate_time_median_us(spec, d, rng, GT_REPEATS)
+            p_w, pcov = simulate_power_mean_w(spec, d, rng, GT_REPEATS)
+            if s.targets[d.name] != {"time_us": t_us, "time_cov": tcov,
+                                     "power_w": p_w, "power_cov": pcov}:
+                replay_off.append(f"{s.kernel}/{s.variant}/{d.name}")
+    if replay_off:
+        failures.append(f"simulated targets off their replay: {replay_off}")
+
+    features_off = [f"{s.kernel}/{s.variant}" for s in ds.samples
+                    if list(s.features) != host_features[
+                        (s.app, s.kernel, s.variant)]["values"]
+                    or s.aux != host_features[
+                        (s.app, s.kernel, s.variant)]["aux"]]
+    if features_off:
+        failures.append(f"features off the front end's: {features_off}")
+
+    # how the card's times rank against each feature and each simulated
+    # device's times
+    X = np.array([s.features for s in ds.samples])
+    vs_features = {n: spearman(times, X[:, j])
+                   for j, n in enumerate(FEATURE_NAMES)}
+    vs_simulated = {}
+    for d in SIMULATED_DEVICES:
+        sim = np.array([s.targets[d.name]["time_us"] for s in ds.samples])
+        vs_simulated[d.name] = {"spearman": spearman(times, sim),
+                                "median_ratio": float(np.median(times / sim))}
+    order = np.argsort(times)
+    half = len(order) // 2
+
+    def named(idx, values, key):
+        return [{"workload": f"{ds.samples[i].kernel}/{ds.samples[i].variant}",
+                 key: float(values[i])} for i in idx]
+    emit("ground_truth", workloads=len(ds), sizes=list(GT_SIZES),
+         repeats=GT_REPEATS, device=card, seconds=wall_s,
+         export_s=st.export_s, timing_s=st.measure_s,
+         time_us_min=float(np.nanmin(times)),
+         time_us_max=float(np.nanmax(times)),
+         orders_of_magnitude=float(np.log10(np.nanmax(times)
+                                            / np.nanmin(times))),
+         cov_mean_shorter_half=float(np.mean(covs[order[:half]])),
+         cov_mean_longer_half=float(np.mean(covs[order[half:]])),
+         slowest=named(order[::-1][:5], times, "time_us"),
+         highest_cov_longer_half=named(
+             order[half:][np.argsort(covs[order[half:]])[::-1][:5]], covs,
+             "time_cov"),
+         vs_simulated=vs_simulated, spearman_vs_features=vs_features,
+         timed_compiles=st.timed_compiles,
+         simulated_targets_replayed=len(ds) * len(SIMULATED_DEVICES)
+         - len(replay_off),
+         features_equal_frontend=len(ds) - len(features_off), card=smi)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"dataset": ds, "device": card}
+
+
+def cv_worker(samples: list, devices: list) -> dict:
+    """Nested CV (``core/cv.py``, CV_GRID and CV_CONFIG) on each device's
+    ``time_us`` of the dataset ``samples`` (its samples' JSON), after
+    ``reduce_overrepresented()``; a worker of the ground-truth phases (its
+    own process, so that it runs beside the LM phases)."""
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.core.cv import CVConfig, nested_cv
+    from repro_torch.core.dataset import Dataset, Sample
+
+    ds = Dataset([Sample.from_json(d) for d in samples]).reduce_overrepresented()
+    out = {}
+    for name in devices:
+        X, y, _ = ds.matrix(name, "time_us")
+        res = nested_cv(X, y, CVConfig(grid=CV_GRID, **CV_CONFIG))
+        out[name] = {"rows": int(len(y)), **res.summary(),
+                     "best_params_mode": res.best_params_mode(),
+                     "fold_mape": res.scores.tolist()}
+    return out
+
+
+def ground_truth_serve_phase(dev, truth: dict, smi: str) -> dict:
+    """The paper-profile forest fitted on the log of the card's times,
+    served through B1 on all of the ground truth's rows and held to the
+    plain CPU dense path; B1's launches counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.features import FEATURE_NAMES
+    from repro_torch.core.forest import ExtraTreesRegressor
+    from repro_torch.kernels.forest import ops
+    from repro_torch.serve import ForestEngine
+
+    X, y, _ = truth["dataset"].matrix(truth["device"], "time_us")
+    X = X.astype(np.float32)
+    t0 = time.perf_counter()
+    est = ExtraTreesRegressor(n_estimators=N_TREES, criterion="mse",
+                              max_features="max", seed=0).fit(X, np.log(y))
+    fit_s = time.perf_counter() - t0
+    ops.launches = 0                       # count the main path's launches
+    with ForestEngine(est, device=dev) as eng:
+        if eng.backend != "hopper":
+            raise AssertionError(f"engine serves on {eng.backend!r}")
+        log_t = eng.predict(X)
+        batches = eng.stats.batches
+    torch.cuda.synchronize()
+    launches = ops.launches
+    np.testing.assert_allclose(log_t, plain_cpu(est, X), rtol=RTOL, atol=ATOL,
+                               err_msg="forest on the card's times")
+    if launches < batches or launches == 0:
+        raise AssertionError(f"{launches} forest kernel launches for "
+                             f"{batches} engine batches")
+    # the engine serves the trees cut at dense depth DEPTH; beside it, the
+    # whole trees' in-sample error (the host's tree walk)
+    full = est.predict(X)
+    top = np.argsort(est.feature_importances_)[::-1][:5]
+    emit("ground_truth_serve", rows=int(len(X)), trees=N_TREES,
+         device=truth["device"], fit_s=fit_s, avg_depth=est.avg_depth(),
+         kernel_launches=launches, engine_batches=batches, depth=DEPTH,
+         median_ape_in_sample=float(np.median(np.abs(np.exp(log_t) - y) / y)),
+         median_ape_in_sample_whole_trees=float(
+             np.median(np.abs(np.exp(full) - y) / y)),
+         top_features={FEATURE_NAMES[j]: float(est.feature_importances_[j])
+                       for j in top},
+         rtol=RTOL, atol=ATOL, card=smi)
+    return {"est": est, "X": X, "launches": launches}
+
+
+def stream_refresh_phase(dev, truth: dict, served: dict, smi: str) -> dict:
+    """The suite at STREAM_SIZES measured on a collector thread into a
+    store, while a refresher refits a STREAM_TREES-tree forest on each new
+    snapshot and hot-swaps it into a live engine on the card (starting from
+    the ground-truth forest), and a reader thread predicts a fixed batch
+    all the while. Every answered batch is held to one generation's plain
+    CPU dense path; after the stream the engine is held to a deterministic
+    refit of the last snapshot."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.dataset import DatasetStore
+    from repro_torch.kernels.forest import ops
+    from repro_torch.serve import (EngineRefresher, ForestEngine,
+                                   single_device_fit_fn)
+    from repro_torch.workloads import collect as gt
+    from repro_torch.workloads.stream import StreamingCollector
+    from repro_torch.workloads.suite import suite
+
+    card, X = truth["device"], served["X"]
+    fit_fn = single_device_fit_fn(card, n_estimators=STREAM_TREES)
+    fitted = [served["est"]]                 # generation g serves fitted[g]
+
+    def fit_and_keep(ds):
+        est = fit_fn(ds)
+        fitted.append(est)
+        return est
+
+    workloads = suite(sizes=STREAM_SIZES, device=dev)
+    store = DatasetStore(max_per_group=100, seed=0)
+    gt.stats = gt.CollectStats()
+    ops.launches = 0                       # count the main path's launches
+    engine = ForestEngine(served["est"], device=dev)
+    answers, reader_errors, reads = {}, [], 0
+    stop = threading.Event()
+
+    def reader():
+        nonlocal reads
+        try:
+            while not stop.is_set():
+                before = engine.generation
+                out = engine.predict(X)
+                answers.setdefault((before, engine.generation, out.tobytes()),
+                                   out)
+                reads += 1
+                stop.wait(0.005)
+        except Exception as exc:           # surfaced below
+            reader_errors.append(exc)
+
+    refresher = EngineRefresher(store, engine, fit_and_keep,
+                                min_samples=STREAM_MIN_SAMPLES, poll_s=0.05)
+    collector = StreamingCollector(store, workloads, repeats=GT_REPEATS,
+                                   measure_cpu=True, chunk_size=STREAM_CHUNK,
+                                   seed=0)
+    thread = threading.Thread(target=reader, name="stream-reader")
+    t0 = time.perf_counter()
+    thread.start()
+    refresher.start()
+    collector.start()
+    try:
+        finished = collector.wait(timeout=600)
+        deadline = time.monotonic() + 120
+        while (refresher.stats.last_version < store.version
+               and refresher.stats.failed_version != store.version
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+    finally:
+        collector.stop()
+        refresher.stop()
+        stop.set()
+        thread.join(timeout=60)
+    stream_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = ops.launches
+    failures = []
+    if thread.is_alive() or reader_errors:
+        failures.append(f"reader: alive {thread.is_alive()}, {reader_errors}")
+    if (not finished or collector.error is not None
+            or collector.collected != len(workloads)):
+        failures.append(f"collector: finished {finished}, error "
+                        f"{collector.error!r}, {collector.collected} of "
+                        f"{len(workloads)} samples")
+    st = refresher.stats
+    if (st.refreshes < 2 or st.errors or st.last_version != store.version
+            or len(fitted) != st.refreshes + 1):
+        failures.append(f"refresher: {st}, {len(fitted)} fits")
+
+    # every answered batch is one generation's answer, whole: a generation
+    # the batch could have come from (its engine's generation before and
+    # after the call, and those between) whose plain path it equals
+    plains = {}
+
+    def answer_of(g):
+        if g not in plains:
+            plains[g] = plain_cpu(fitted[g], X)
+        return plains[g]
+    mixed, gens_served = [], set()
+    for (g0, g1, _), out in answers.items():
+        whole = [g for g in range(g0, min(g1, len(fitted) - 1) + 1)
+                 if np.allclose(out, answer_of(g), rtol=RTOL, atol=ATOL)]
+        if whole:
+            gens_served.add(whole[0])
+        else:
+            mixed.append((g0, g1))
+    if mixed:
+        failures.append(f"batches matching no single generation: {mixed}")
+    if launches < len(gens_served) or launches == 0:
+        failures.append(f"{launches} forest kernel launches for "
+                        f"{len(gens_served)} generations served")
+
+    # after the stream: the engine serves a deterministic refit of the last
+    # snapshot
+    snap = store.snapshot()
+    final = engine.predict(X)
+    engine.close()
+    np.testing.assert_allclose(final, plain_cpu(fit_fn(snap.dataset), X),
+                               rtol=RTOL, atol=ATOL,
+                               err_msg="engine after the stream")
+
+    # the streamed features equal the ground truth's for the same workloads
+    truth_by_key = {(s.app, s.kernel, s.variant): s
+                    for s in truth["dataset"].samples}
+    streamed, _ = store.raw()
+    features_off = [s.kernel for s in streamed
+                    if list(s.features) != list(truth_by_key[
+                        (s.app, s.kernel, s.variant)].features)
+                    or s.aux != truth_by_key[(s.app, s.kernel,
+                                              s.variant)].aux]
+    if features_off:
+        failures.append(f"streamed features off the ground truth's: "
+                        f"{features_off}")
+    ratio = np.array([s.targets[card]["time_us"] / truth_by_key[
+        (s.app, s.kernel, s.variant)].targets[card]["time_us"]
+        for s in streamed])
+    farthest = np.argsort(np.abs(np.log(ratio)))[::-1][:3]
+    emit("stream_refresh", workloads=len(workloads), samples=len(streamed),
+         store_version=store.version, snapshot_rows=len(snap.dataset),
+         seconds=stream_s, export_s=gt.stats.export_s,
+         timing_s=gt.stats.measure_s, timed_compiles=gt.stats.timed_compiles,
+         refreshes=st.refreshes, refresh_errors=st.errors,
+         refresh_skipped=st.skipped, generation=engine.generation,
+         reads=reads, distinct_answers=len(answers),
+         generations_served=sorted(gens_served), mixed_batches=len(mixed),
+         kernel_launches=launches,
+         time_vs_ground_truth_median=float(np.median(ratio)),
+         time_vs_ground_truth_range=[float(ratio.min()), float(ratio.max())],
+         time_vs_ground_truth_farthest=[
+             {"workload": streamed[i].kernel, "ratio": float(ratio[i]),
+              "ground_truth_us": float(truth_by_key[
+                  (streamed[i].app, streamed[i].kernel,
+                   streamed[i].variant)].targets[card]["time_us"])}
+             for i in farthest],
+         trees=STREAM_TREES, chunk=STREAM_CHUNK, card=smi)
+    if failures:
+        raise AssertionError("; ".join(failures))
     return {"launches": launches}
 
 
@@ -1181,7 +1557,7 @@ def main() -> int:
     from repro_torch.core.dataset import Dataset
     from repro_torch.core.devices import SIMULATED_DEVICES
     from repro_torch.core.forest import ExtraTreesRegressor
-    from repro_torch.core.forest_torch import DenseForestTorch, to_dense
+    from repro_torch.core.forest_torch import to_dense
     from repro_torch.core.scheduler import schedule
     from repro_torch.kernels.attention import kernel as ak
     from repro_torch.kernels.forest import kernel as fk
@@ -1321,10 +1697,6 @@ def main() -> int:
          nonfinite_rows="ok")
 
     # ------------------------------------------------------------- serve
-    def plain_cpu(estimator, Z):
-        return DenseForestTorch(to_dense(estimator, DEPTH),
-                                device="cpu")(Z).numpy().astype(np.float64)
-
     def close_to(got, want, what):
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL,
                                    err_msg=what)
@@ -1428,21 +1800,37 @@ def main() -> int:
     front = frontend_phase({dev0: est, dev1: est_dev1},
                            json.loads(FIXTURE.read_text()), smi)
 
-    # ---------------------------------------------------- the LM path
-    ssd = ssd_kernel_phase(dev)
-    served = lm_serve_phase(dev)
-    lm = lm_timing_phase(dev, served, smi)
-    serve_launches = served["launches"]
-    del served                                # free the served model
-    torch.cuda.empty_cache()
+    # ---------------------------------------------------- the ground truth
+    truth = ground_truth_phase(dev, front["features"], smi)
+    # nested CV on the host, in a worker process beside the phases below
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+            "spawn")) as cv_pool:
+        cv_future = cv_pool.submit(
+            cv_worker, [s.to_json() for s in truth["dataset"].samples],
+            [truth["device"], CV_YARDSTICK])
+        gt_served = ground_truth_serve_phase(dev, truth, smi)
+        stream = stream_refresh_phase(dev, truth, gt_served, smi)
 
-    # ------------------------------------------------- the training path
-    flash = flash_kernel_phase(dev)
-    trained = lm_train_phase(dev)
-    train_launches, per_step = trained["launches"], trained["per_step"]
-    train_t = train_timing_phase(dev, trained, smi)
-    flash_t, ssd_t = train_t["flash"], train_t["ssd"]
-    lm_train_f32_phase(dev)
+        # ------------------------------------------------ the LM path
+        ssd = ssd_kernel_phase(dev)
+        served = lm_serve_phase(dev)
+        lm = lm_timing_phase(dev, served, smi)
+        serve_launches = served["launches"]
+        del served                            # free the served model
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------- the training path
+        flash = flash_kernel_phase(dev)
+        trained = lm_train_phase(dev)
+        train_launches, per_step = trained["launches"], trained["per_step"]
+        train_t = train_timing_phase(dev, trained, smi)
+        flash_t, ssd_t = train_t["flash"], train_t["ssd"]
+        lm_train_f32_phase(dev)
+        t0 = time.perf_counter()
+        cv = cv_future.result()
+    emit("ground_truth_cv", rows=cv[truth["device"]]["rows"],
+         grid=CV_GRID, config=CV_CONFIG, waited_s=time.perf_counter() - t0,
+         results=cv, card=smi)
 
     main_b = next(t for t in timing if t["B"] == X.shape[0])
     print(json.dumps({"kernels": [{
@@ -1454,6 +1842,8 @@ def main() -> int:
         "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
         "library_ms": None, "frontend_launches": front["launches"],
+        "ground_truth_launches": gt_served["launches"],
+        "stream_launches": stream["launches"],
         "batch": main_b["B"], "depth": DEPTH,
         "trees": N_TREES, "table_bytes": main_b["table_bytes"],
         "cuda_kernels": list(FOREST_KERNELS)}, {

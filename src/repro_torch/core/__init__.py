@@ -2,15 +2,16 @@
 PyTorch/CUDA port.
 
 ``devices``, ``forest``, ``metrics``, ``split``, ``dataset``, ``simulate``,
-``power`` and ``scheduler`` are numpy-only copies of their ``repro.core``
-counterparts (the port must not import ``repro``, whose ``core`` package
-imports JAX); ``features`` extracts the 12 features from a
+``power``, ``scheduler`` and ``cv`` are numpy-only copies of their
+``repro.core`` counterparts (the port must not import ``repro``, whose
+``core`` package imports JAX); ``features`` extracts the 12 features from a
 ``torch.export`` graph, as the reference's does from StableHLO.
 ``forest_torch`` and ``latency`` are the torch counterparts of
 ``forest_jax`` and ``latency``; ``convert`` carries a fitted forest across
 from the reference."""
 from .convert import (dense_from_arrays, estimator_from_arrays,
                       lm_params_from_arrays)
+from .cv import CVConfig, NestedCVResult, grid_search, leave_one_out, nested_cv
 from .dataset import Dataset, Sample
 from .devices import DEVICE_MODELS, SIMULATED_DEVICES, DeviceModel
 from .features import (FEATURE_NAMES, N_FEATURES, FeatureVector, LaunchConfig,

@@ -310,11 +310,15 @@ def test_default_device_is_the_card():
         pytest.skip("a CUDA device is present; this checks a card-less host")
     from repro_torch.core.forest_torch import DenseForestTorch, FlatForestTorch
     from repro_torch.serve import ForestEngine, build_backends
+    from repro_torch.workloads.collect import collect
+    from repro_torch.workloads.stream import StreamingCollector
     X, y = _data(10)
     est = p_forest.ExtraTreesRegressor(n_estimators=2, seed=0).fit(X, y)
     for make in (lambda: ForestEngine(est),
                  lambda: build_backends(est),
                  lambda: FlatForestTorch(est.to_flat()),
-                 lambda: DenseForestTorch(p_to_dense(est, 4))):
+                 lambda: DenseForestTorch(p_to_dense(est, 4)),
+                 lambda: collect(),
+                 lambda: StreamingCollector(p_dataset.DatasetStore())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
