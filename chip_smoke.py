@@ -70,6 +70,30 @@ Phases, one JSON line each:
                whole answer, B1 launches counted, the engine after the
                stream equal to a refit of the last snapshot, the streamed
                features equal to ground_truth's
+  sharded      the 512-tree forest behind ``ShardedForestEngine`` on the card
+               (the loop placement): 1, 2, 3, 4 and 8 shards at B = 64 / 328
+               / 4096, held to the plain CPU dense path, one launch per live
+               shard per call; shard 0 and then shard 2 of 3 dropped, held to
+               the plain path over the surviving trees with shard_drops /
+               trees_lost, a swap restoring all 512; the 22-tree forest in
+               22 one-tree shards and in 7; engine ms per shard count at
+               B = 4096 beside the unsharded engine's
+  cluster      ``python -m repro_torch.cluster --port 0 --trees 64
+               --n-features 12`` as a subprocess on the card (startup time,
+               no rebuild of the forest library): a v3 and a v2-pinned
+               ``RemoteReplica`` held to the in-process twin's plain CPU
+               dense path, ``op='metrics'`` and the Prometheus endpoint
+               holding the reference's per-layer names; the golden trace
+               (``tests/fixtures/trace_golden_v1.jsonl``) replayed in process
+               through ``demo_frontend(seed=3, n_features=12)`` on the card
+               and on the host, every event's outcome the same and every
+               prediction within rtol 1e-5, the host's digest reported
+  supervise    ``serve/supervise.py::smoke()`` on the card, then its scenario
+               (day-zero transfer tier, measured feedback, graduation) with
+               a ``MultiDeviceEngine`` that graduation extends by
+               ``add_device``: the graduated engine held to the plain CPU
+               dense path of its forest, launches held to engine batches,
+               the simulator's MAPE at day zero, plateau and graduation
   ground_truth_cv  nested CV (``core/cv.py``, the reference's fast grid) on
                the card's times and on tpu-v5e's simulated times, in a
                worker process beside the LM phases (reported, not held)
@@ -107,8 +131,11 @@ Phases, one JSON line each:
                order and two broken kernels (reported; PERF.md says why no
                limit holds them)
 
-then a ``{"kernels": [...]}`` line, the card's name and power limit as
-nvidia-smi prints them, and ``{"ok": true, "device": {...}}`` last. Any
+then a ``{"kernels": [...]}`` line (the forest kernel's entry counts its
+launches on each path: ``launches`` in serve, then ``frontend_launches``,
+``ground_truth_launches``, ``stream_launches``, ``sharded_launches``,
+``cluster_launches`` and ``supervise_launches``), the card's name and power
+limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}`` last. Any
 failed check raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result. The kernels build into
 ``build/kernels/``.
@@ -229,6 +256,23 @@ STREAM_SIZES = ("s",)
 STREAM_TREES = 32
 STREAM_CHUNK = 8
 STREAM_MIN_SAMPLES = 8
+
+# the serving tier: the 512-tree forest partitioned into these shard counts
+# (the loop placement: one card), served at TIMED_BATCHES; shards 0 and then
+# 2 of a 3-shard engine dropped (shards of 171, 171 and 170 trees); the
+# 22-tree forest in one-tree shards and in 7 (shards of 3 and 4 trees, sizes
+# the kernel's tree group of 4 does not divide)
+SHARD_COUNTS = (1, 2, 3, 4, 8)
+SHARD_DROPS = (3, (0, 2))
+DEEP_SHARDS = (DEEP_TREES, 7)
+ENGINE_CALLS = 5             # engine calls per shard count at B = 4096, whose
+                             # median is reported (host clock)
+# the wire server: ``python -m repro_torch.cluster --port 0 --trees 64
+# --n-features 12`` beside its in-process twin, and the golden trace of
+# tests/test_trace.py replayed through the demo frontend the reference's
+# golden test builds (seed 3, 12 features)
+CLUSTER_TREES, CLUSTER_FEATURES, CLUSTER_ROWS = 64, 12, 64
+TRACE_FIXTURE = REPO / "tests" / "fixtures" / "trace_golden_v1.jsonl"
 
 # the CUDA kernels each wrapper call launches, by the name the profiler
 # shows: the forest walk and the sum of its groups' partials; the SSD scan's
@@ -1545,6 +1589,371 @@ def stream_refresh_phase(dev, truth: dict, served: dict, smi: str) -> dict:
     return {"launches": launches}
 
 
+def plain_subset(dense, trees, Z):
+    """The plain CPU dense path over the trees ``trees`` of the
+    ``DenseForest`` ``dense`` on rows Z: the mean of their leaves, as
+    ``DenseForestTorch`` takes it. Over every tree it is ``plain_cpu``; over
+    ``live_tree_indices()`` it is what a sharded engine answers after a
+    drop."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.forest_torch import dense_leaf_sum
+    idx = np.asarray(list(trees))
+    tables = (torch.as_tensor(a[idx])
+              for a in (dense.feature, dense.threshold, dense.value))
+    x = torch.as_tensor(np.ascontiguousarray(Z, dtype=np.float32))
+    return (dense_leaf_sum(*tables, x, dense.depth) / len(idx)).numpy(
+    ).astype(np.float64)
+
+
+def close_to(got, want, what):
+    import numpy as np
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL, err_msg=what)
+
+
+def engine_call(eng, Z) -> tuple:
+    """One engine call: its answers, the forest kernel's launches in it and
+    its host-clock ms (the answers come back to the host, so the call ends
+    after the card's work)."""
+    from repro_torch.kernels.forest import ops
+    before = ops.launches
+    t0 = time.perf_counter()
+    out = eng.predict(Z)
+    return out, ops.launches - before, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_phase(dev, est, est_deep, batches: dict, smi: str) -> dict:
+    """The 512-tree forest behind ``ShardedForestEngine`` on the card at
+    SHARD_COUNTS and the rows ``batches`` holds; the drops of SHARD_DROPS
+    and a swap back; the 22-tree forest at DEEP_SHARDS. Every answer is
+    held to the plain CPU dense path over the trees it serves, and every
+    call launches the forest kernel once per live shard."""
+    import numpy as np
+
+    from repro_torch.core.forest_torch import to_dense
+    from repro_torch.kernels.forest import ops
+    from repro_torch.serve import ForestEngine, ShardedForestEngine
+
+    t_phase = time.perf_counter()
+    dense, dense_deep = to_dense(est, DEPTH), to_dense(est_deep, DEPTH)
+    n_trees = len(est.trees_)
+    want = {B: plain_subset(dense, range(n_trees), Z)
+            for B, Z in batches.items()}
+    big = max(batches)
+    with ForestEngine(est, cache_size=0, device=dev) as eng:
+        engine_call(eng, batches[big])
+        unsharded_ms = float(np.median([
+            engine_call(eng, batches[big])[2] for _ in range(ENGINE_CALLS)]))
+    ops.launches = 0                       # count the main path's launches
+    cases, engine_ms, failures = [], {}, []
+
+    def check(eng, B, Z, oracle):
+        out, launches, ms = engine_call(eng, Z)
+        live = len(eng.shard_sizes)
+        close_to(out, oracle, f"{eng.backend} at B={B}")
+        if launches != live:
+            failures.append(f"{eng.backend} at B={B}: {launches} launches "
+                            f"for {live} live shards")
+        cases.append({"backend": eng.backend, "B": B,
+                      "shard_sizes": eng.shard_sizes, "launches": launches,
+                      "max_abs_err": float(np.abs(out - oracle).max())})
+        return ms
+
+    for n in SHARD_COUNTS:
+        with ShardedForestEngine(est, n_shards=n, cache_size=0,
+                                 device=dev) as eng:
+            if eng.backend != f"sharded-hopper-loopx{n}":
+                raise AssertionError(f"{n} shards serve on {eng.backend!r}")
+            for B, Z in batches.items():
+                check(eng, B, Z, want[B])
+            engine_ms[n] = float(np.median([
+                check(eng, big, batches[big], want[big])
+                for _ in range(ENGINE_CALLS)]))
+
+    # drop shard 0, then shard 2: the mean renormalizes over the survivors
+    n, drops = SHARD_DROPS
+    mid = sorted(batches)[len(batches) // 2]
+    Z = batches[mid]
+    dropped = []
+    with ShardedForestEngine(est, n_shards=n, cache_size=0,
+                             device=dev) as eng:
+        for idx in drops:
+            lost = eng.drop_shard(idx)
+            live = eng.live_tree_indices()
+            check(eng, mid, Z, plain_subset(dense, live, Z))
+            st = eng.stats_snapshot()
+            dropped.append({"shard": idx, "trees_lost": lost,
+                            "live_trees": len(live), "stats": {
+                                "shard_drops": st.shard_drops,
+                                "trees_lost": st.trees_lost}})
+            if (st.shard_drops != len(dropped)
+                    or st.trees_lost != n_trees - len(live)
+                    or eng.live_trees != len(live)):
+                failures.append(f"after dropping shard {idx}: {st}, "
+                                f"{len(live)} live trees")
+        eng.swap_estimator(est)
+        check(eng, mid, Z, want[mid])
+        st = eng.stats_snapshot()
+        if (eng.live_trees != n_trees or st.trees_lost != 0
+                or st.shard_drops != len(drops) or eng.dead_shards):
+            failures.append(f"the swap did not restore the forest: {st}")
+
+    # the 22-tree forest: one-tree shards, and shards the tree group of
+    # the kernel does not divide
+    for n in DEEP_SHARDS:
+        with ShardedForestEngine(est_deep, n_shards=n, cache_size=0,
+                                 device=dev) as eng:
+            for B, Z in batches.items():
+                check(eng, B, Z, plain_subset(
+                    dense_deep, range(len(est_deep.trees_)), Z))
+    launches = ops.launches
+    emit("sharded", seconds=time.perf_counter() - t_phase, trees=n_trees,
+         depth=DEPTH, cases=len(cases),
+         max_abs_err=max(c["max_abs_err"] for c in cases),
+         engine_ms_at_4096={str(k): v for k, v in engine_ms.items()},
+         unsharded_engine_ms_at_4096=unsharded_ms, drops=dropped,
+         kernel_launches=launches, results=cases, rtol=RTOL, atol=ATOL,
+         card=smi)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches}
+
+
+def replay_mismatches(cpu_report, card_report) -> list:
+    """Events whose outcome differs between two replays of one trace, or
+    whose predictions differ by more than RTOL / ATOL: (index, what)."""
+    import numpy as np
+    off = []
+    card = {o.idx: o for o in card_report.outcomes}
+    for a in sorted(cpu_report.outcomes, key=lambda o: o.idx):
+        b = card.pop(a.idx, None)
+        if b is None:
+            off.append((a.idx, "missing on the card"))
+        elif (a.tenant, a.kernel, a.outcome) != (b.tenant, b.kernel,
+                                                 b.outcome):
+            off.append((a.idx, f"{a.outcome} on the host, {b.outcome} on "
+                               f"the card"))
+        elif (a.prediction is None) != (b.prediction is None) or (
+                a.prediction is not None and not np.isclose(
+                    b.prediction, a.prediction, rtol=RTOL, atol=ATOL)):
+            off.append((a.idx, f"prediction {b.prediction} on the card, "
+                               f"{a.prediction} on the host"))
+    off += [(i, "only on the card") for i in sorted(card)]
+    return off
+
+
+def cluster_phase(dev, smi: str) -> dict:
+    """The port's serving entry point, ``python -m repro_torch.cluster``, as
+    a subprocess on the card beside an in-process twin: a v3 and a
+    v2-pinned peer held to the twin's plain CPU dense path, both metrics
+    surfaces scraped for the reference's per-layer names; the subprocess
+    must load the forest library the build phase left, not build it. Then
+    the golden trace replayed in process through the demo frontend on the
+    card and on the host: every event's outcome the same, every prediction
+    within RTOL."""
+    import urllib.request
+
+    import numpy as np
+
+    from repro_torch.cluster.remote import (REQUIRED_METRICS, RemoteReplica,
+                                            demo_estimator, demo_frontend,
+                                            spawn_demo_server)
+    from repro_torch.cluster.transport import PROTOCOL_V3, PROTOCOL_VERSION
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.forest import ops
+    from repro_torch.workloads.trace import TraceReplayer, load_trace
+
+    def libraries():
+        return {p.name: p.stat().st_mtime_ns
+                for p in _build.BUILD_DIR.glob("*.so")}
+    t_phase = time.perf_counter()
+    built = libraries()
+    t0 = time.perf_counter()
+    proc, host, port, mhost, mport = spawn_demo_server(
+        0, trees=CLUSTER_TREES, n_features=CLUSTER_FEATURES, metrics_port=0,
+        device=dev.type)
+    startup_s = time.perf_counter() - t0
+    failures, peers = [], {}
+    try:
+        est = demo_estimator(n_features=CLUSTER_FEATURES,
+                             n_trees=CLUSTER_TREES)
+        Xc = np.random.default_rng(123).lognormal(
+            1.0, 1.5, size=(CLUSTER_ROWS, CLUSTER_FEATURES)).astype(
+            np.float32)
+        want = plain_cpu(est, Xc)
+        for name, protocol in (("v3", PROTOCOL_V3), ("v2", PROTOCOL_VERSION)):
+            with RemoteReplica(host, port, timeout_s=60.0,
+                               protocol=protocol) as peer:
+                t0 = time.perf_counter()
+                got = peer.predict(Xc, deadline_s=30.0)
+                ms = (time.perf_counter() - t0) * 1e3
+                negotiated = peer.negotiated_version
+            close_to(got, want, f"{name} peer")
+            if negotiated != protocol:
+                failures.append(f"{name} peer negotiated {negotiated}")
+            peers[name] = {"ms": ms, "max_abs_err": float(
+                np.abs(got - want).max())}
+        with RemoteReplica(host, port, timeout_s=60.0) as peer:
+            body = peer.metrics()
+        names = {row["name"] for row in body.get("metrics", [])}
+        predictions = sum(row["value"] or 0 for row in body["metrics"]
+                          if row["name"] == "engine.predictions")
+        with urllib.request.urlopen(f"http://{mhost}:{mport}/metrics",
+                                    timeout=30) as resp:
+            text = resp.read().decode()
+        missing = [n for n in REQUIRED_METRICS if n not in names
+                   or f"repro_{n.replace('.', '_')}" not in text]
+        if not body.get("enabled") or missing:
+            failures.append(f"metrics missing {missing}")
+        if predictions < 2 * CLUSTER_ROWS:
+            failures.append(f"engine.predictions {predictions}")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    if libraries() != built:
+        failures.append(f"the server built the forest library again: "
+                        f"{sorted(built)} -> {sorted(libraries())}")
+
+    # the golden trace, in process, on the host and on the card
+    trace = load_trace(TRACE_FIXTURE)
+    reports, launches, batches = {}, 0, 0
+    for side, device in (("host", "cpu"), ("card", dev.type)):
+        fe = demo_frontend(seed=3, n_features=CLUSTER_FEATURES,
+                           device=device).start()
+        engine = fe.pool.replicas["local"].engine
+        ops.launches = 0                   # count the main path's launches
+        try:
+            reports[side] = TraceReplayer(fe, pacing="sequential").replay(
+                trace)
+        finally:
+            fe.close()
+        if side == "card":
+            # the pool's health probes serve through the same engine: each
+            # engine batch, request or probe, is one launch
+            launches, batches = ops.launches, engine.stats.batches
+    cpu, card = reports["host"], reports["card"]
+    off = replay_mismatches(cpu, card)
+    if off or cpu.count("served") != len(trace):
+        failures.append(f"replay: {cpu.count('served')} of {len(trace)} "
+                        f"served on the host, off on the card: {off[:5]}")
+    if launches != batches or launches < card.count("served"):
+        failures.append(f"{launches} launches for {batches} engine batches, "
+                        f"{card.count('served')} events served")
+    emit("cluster", seconds=time.perf_counter() - t_phase,
+         server_startup_s=startup_s, trees=CLUSTER_TREES,
+         features=CLUSTER_FEATURES, rows=CLUSTER_ROWS, peers=peers,
+         metrics=len(names), required_metrics=list(REQUIRED_METRICS),
+         server_engine_predictions=predictions,
+         library_rebuilt=libraries() != built, trace_events=len(trace),
+         cpu_digest=cpu.digest(), card_digest=card.digest(),
+         outcomes_equal=not off,
+         wall_ms_per_request={"cpu": cpu.wall_s / len(trace) * 1e3,
+                              "card": card.wall_s / len(trace) * 1e3},
+         served_p50_ms={"cpu": cpu.served_wall_ms(50),
+                        "card": card.served_wall_ms(50)},
+         kernel_launches=launches, engine_batches=batches, card=smi)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches}
+
+
+def supervise_phase(dev, est, dev0: str, smi: str) -> dict:
+    """The port's supervisor smoke on the card (``serve/supervise.py``:
+    day-zero transfer tier, measured feedback, graduation into a forest
+    served by the kernel), then its scenario again with a
+    ``MultiDeviceEngine`` that graduation extends by ``add_device``: the
+    graduated engine held to the plain CPU dense path of its forest, the
+    pricing matrix's new column to it, every launch to an engine batch.
+    The targets are simulated (``cliff_rows`` on tpu-v5e's model), so the
+    MAPEs are the simulator's."""
+    import numpy as np
+
+    from repro_torch.cluster.frontend import ClusterFrontend
+    from repro_torch.cluster.replicas import ReplicaPool
+    from repro_torch.core.dataset import DatasetStore, Sample
+    from repro_torch.core.devices import TPU_V5E
+    from repro_torch.core.metrics import mape
+    from repro_torch.core.transfer import TransferConfig, select_probes
+    from repro_torch.kernels.forest import ops
+    from repro_torch.obs.calibration import CalibrationMonitor
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.serve import (EngineConfig, ForestEngine,
+                                   MultiDeviceEngine, SupervisorConfig,
+                                   TransferSupervisor, build_transfer_engine)
+    from repro_torch.serve import supervise
+
+    t_phase = time.perf_counter()
+    ops.launches = 0                       # count the main path's launches
+    if supervise.smoke(device=dev.type) != 0:
+        raise AssertionError("the supervisor smoke failed")
+    smoke_s, smoke_launches = time.perf_counter() - t_phase, ops.launches
+    if smoke_launches == 0:
+        raise AssertionError("the supervisor smoke never launched the kernel")
+
+    name = "day-zero-accelerator"
+    Xp, yp = supervise.cliff_rows(TPU_V5E, 160, seed=1)       # probe stream
+    Xev, yev = supervise.cliff_rows(TPU_V5E, 48, seed=2)      # eval set
+    reg = MetricsRegistry()
+    mon = CalibrationMonitor(reg, alpha=0.3)
+    tp = build_transfer_engine(name, monitor=mon, config=TransferConfig(
+        min_samples_leaf=4, shrinkage=32.0))
+    store = DatasetStore()
+    pool = ReplicaPool({"cold": tp}, check_interval_s=60.0)
+    known = ForestEngine(est, cache_size=0, device=dev)
+    multi = MultiDeviceEngine({dev0: {MultiDeviceEngine.TIME: known,
+                                      MultiDeviceEngine.POWER: None}})
+    sup = TransferSupervisor(
+        store, mon, pool=pool, multi_engine=multi, registry=reg,
+        config=SupervisorConfig(
+            min_graduate_samples=96, plateau_window=3,
+            engine_config=EngineConfig(cache_size=0, device=dev.type)))
+    sup.manage(tp, replica="cold", key=name)
+    before = ops.launches
+    with ClusterFrontend(pool, max_queue=64) as fe:
+        m_day0 = mape(yev, fe.predict(Xev))
+        m_plateau = m_day0
+        order = select_probes(Xp, len(Xp))
+        for start in range(0, len(order), 8):
+            if sup.stats_snapshot()["devices"][name]["stage"] == "transfer":
+                m_plateau = mape(yev, fe.predict(Xev))
+            store.extend([Sample(app="smoke", kernel=f"k{j}", variant="s",
+                                 features=Xp[j],
+                                 targets={name: {"time_us": float(yp[j])}})
+                          for j in order[start:start + 8]])
+            sup.supervise_once()
+        snap = sup.stats_snapshot()
+        m_final = mape(yev, fe.predict(Xev))
+        graduated = multi.engines.get(name, {}).get(MultiDeviceEngine.TIME)
+        if (snap["devices"][name]["stage"] != "forest" or graduated is None
+                or graduated.backend != "hopper"):
+            raise AssertionError(f"no graduation onto the card: {snap}, "
+                                 f"{multi.device_names}")
+        log_t = graduated.predict(Xev)
+        close_to(log_t, plain_cpu(graduated.est, Xev), "graduated engine")
+        T, _ = multi.price(Xev)
+        np.testing.assert_array_equal(T[:, multi.device_names.index(name)],
+                                      np.exp(log_t))
+    multi.close()
+    launches = ops.launches - before
+    batches = graduated.stats.batches + known.stats.batches
+    emit("supervise", seconds=time.perf_counter() - t_phase,
+         smoke_s=smoke_s, smoke_launches=smoke_launches,
+         graduated_at_n=snap["devices"][name]["graduated_at_n"],
+         slot_generation=snap["devices"][name]["slot_generation"],
+         feedback=snap["stats"].feedback, devices=multi.device_names,
+         simulated_mape_pct={"day_zero": m_day0, "plateau": m_plateau,
+                             "graduated": m_final},
+         kernel_launches=launches, engine_batches=batches,
+         trees=len(graduated.est.trees_), card=smi)
+    if launches != batches or not m_final < m_day0 \
+            or m_final > 1.10 * m_plateau:
+        raise AssertionError(f"{launches} launches for {batches} engine "
+                             f"batches; MAPE {m_day0} -> {m_plateau} -> "
+                             f"{m_final}")
+    return {"launches": smoke_launches + launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1697,10 +2106,6 @@ def main() -> int:
          nonfinite_rows="ok")
 
     # ------------------------------------------------------------- serve
-    def close_to(got, want, what):
-        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL,
-                                   err_msg=what)
-
     ops.launches = 0                       # count the main path's launches
     t_serve = time.perf_counter()
     engine = ForestEngine(est, device="cuda")
@@ -1811,6 +2216,12 @@ def main() -> int:
         gt_served = ground_truth_serve_phase(dev, truth, smi)
         stream = stream_refresh_phase(dev, truth, gt_served, smi)
 
+        # ------------------------------------------- the serving tier
+        sharded = sharded_phase(dev, est, est_deep,
+                                {B: rows(B) for B in TIMED_BATCHES}, smi)
+        cluster = cluster_phase(dev, smi)
+        supervised = supervise_phase(dev, est, dev0, smi)
+
         # ------------------------------------------------ the LM path
         ssd = ssd_kernel_phase(dev)
         served = lm_serve_phase(dev)
@@ -1844,6 +2255,9 @@ def main() -> int:
         "library_ms": None, "frontend_launches": front["launches"],
         "ground_truth_launches": gt_served["launches"],
         "stream_launches": stream["launches"],
+        "sharded_launches": sharded["launches"],
+        "cluster_launches": cluster["launches"],
+        "supervise_launches": supervised["launches"],
         "batch": main_b["B"], "depth": DEPTH,
         "trees": N_TREES, "table_bytes": main_b["table_bytes"],
         "cuda_kernels": list(FOREST_KERNELS)}, {

@@ -13,10 +13,17 @@ callables (counterpart of ``repro.serve.backend``).
     (host numpy) and ``hopper`` (the CUDA kernel); the plain torch paths
     ``flat-torch`` and ``dense-torch`` are built only for ``device="cpu"``,
     where ``hopper`` takes the kernel's plain version.
-  * ``ServingEngine`` — the engine-level contract the scheduler duck-types
-    against (predict / swap_estimator / close).
-  * ``supports_deadline`` — whether a predictor accepts ``deadline_s``; the
-    scheduler probes for it before threading its remaining slack through.
+  * ``ServingEngine`` — the engine-level contract the scheduler and the
+    refresher duck-type against (predict / predict_async / swap_estimator /
+    close / stats). ``cluster.remote.RemoteReplica`` satisfies it too: a
+    pool member may live in another process or on another machine.
+  * ``DeadlineAwarePredictor`` / ``supports_deadline`` — the optional
+    extension for serving tiers: ``predict(X, deadline_s=..., priority=...)``
+    lets a caller's remaining deadline slack order the admission queue
+    (``core.scheduler.slack_priority``). The scheduler probes for it with
+    ``supports_deadline`` and falls back to the plain call.
+  * ``build_transfer_engine`` — the cold-start transfer tier
+    (``core.transfer``) for a device the forests never trained on.
 """
 from __future__ import annotations
 
@@ -46,13 +53,24 @@ class PredictorBackend(Protocol):
 
 @runtime_checkable
 class ServingEngine(Protocol):
-    """What the scheduler and benchmarks require of an engine."""
+    """What the scheduler / refresher / benchmarks require of an engine."""
 
     def predict(self, X: np.ndarray) -> np.ndarray: ...
 
     def swap_estimator(self, est: ExtraTreesRegressor) -> int: ...
 
     def close(self) -> None: ...
+
+
+@runtime_checkable
+class DeadlineAwarePredictor(Protocol):
+    """A predictor whose serving tier can honor urgency: the remaining
+    deadline budget rides along with the call (and over the wire as
+    ``deadline_ms`` — see ``cluster/transport.py``), and ``priority=None``
+    means "derive it from my slack" (``core.scheduler.slack_priority``)."""
+
+    def predict(self, X: np.ndarray, *, deadline_s: float | None = ...,
+                priority: int | None = ...) -> np.ndarray: ...
 
 
 def supports_deadline(fn) -> bool:
@@ -74,9 +92,11 @@ def supports_deadline(fn) -> bool:
 
 def calibration_rows(n_rows: int, n_features: int,
                      seed: int = 0) -> np.ndarray:
-    """Feature-shaped rows for timing backends: the features are
-    non-negative and heavy-tailed (§3.1); for pure timing the distribution
-    is irrelevant, only the shapes are."""
+    """Feature-shaped rows for timing backends / probing replicas: the
+    features are non-negative and heavy-tailed (§3.1); for pure timing the
+    distribution is irrelevant, only the shapes are. One definition so the
+    engine's auto-calibration and the cluster tier's health probes can
+    never drift apart."""
     rng = np.random.default_rng(seed)
     return rng.lognormal(1.0, 1.5,
                          size=(n_rows, n_features)).astype(np.float32)
@@ -90,6 +110,37 @@ def _numpy_io(fn, device: torch.device) -> PredictorBackend:
                             device=device)
         return fn(x).cpu().numpy().astype(np.float64)
     return run
+
+
+def build_transfer_engine(device, *, target: str = "time_us", monitor=None,
+                          config=None, log_output: bool = False):
+    """Serve a device the forests never trained on, IMMEDIATELY.
+
+    Returns a ``core.transfer.TransferPredictor`` — the cold-start hybrid
+    (spec-sheet analytical prior, least-squares-refitted per observation,
+    with a forest on its log-residuals once ≥ ``config.min_forest_samples``
+    probes accumulate). It duck-types the serving surface (``predict`` /
+    ``close`` / ``n_features`` / ``stats_snapshot``), so it can:
+
+      * sit in a ``ReplicaPool`` behind ``ClusterFrontend`` like any engine
+        (health probes use :func:`calibration_rows`, which it prices fine),
+      * fill a device slot in ``MultiDeviceEngine`` — pass
+        ``log_output=True`` there, matching ``log_time=True`` forests,
+      * graduate into a ``ForestEngine`` later:
+        ``engine.swap_estimator(predictor.to_forest())`` once the device
+        has enough samples for a full per-device forest.
+
+    ``monitor=`` (a ``CalibrationMonitor``) makes every ``observe(x, y)``
+    record the pre-update prediction, so ``calibration.mape{device}`` is
+    the live convergence gauge for the new device.
+
+    ``device`` may be a ``DeviceModel``, a known device name, or an UNKNOWN
+    name (the generic mid-range prior is used until ``calibrate(device=...)``
+    re-targets it).
+    """
+    from ..core.transfer import TransferPredictor
+    return TransferPredictor(device, target=target, config=config,
+                             monitor=monitor, log_output=log_output)
 
 
 def build_backends(est: ExtraTreesRegressor, *, dense_depth: int = 10,

@@ -26,7 +26,7 @@ hopper); the ``ForestEngine`` puts ONE serving API in front of them:
     answered batch is generation-uniform: all rows of one ``predict`` /
     micro-batch flush come from a single model generation (cache entries are
     invalidated on swap, and writes from a superseded generation are
-    discarded).
+    discarded). The streaming refresher (``serve/refresh.py``) drives this.
 
 ``MultiDeviceEngine`` is the scheduler-facing frontend: one engine per
 (device-type, target) pair, pricing a whole (kernels × device-types) matrix
@@ -34,7 +34,7 @@ in one batched call per engine — the §7.1 "orders of magnitude shorter than
 execution" requirement.
 
 Backend construction lives in ``serve/backend.py`` (the PredictorBackend
-protocol).
+protocol); tree-axis partitioning lives in ``serve/sharded.py``.
 """
 from __future__ import annotations
 
@@ -85,6 +85,11 @@ class EngineStats:
     flushes_manual: int = 0
     generation: int = 0            # current model generation (bumps on swap)
     swaps: int = 0                 # completed hot-swaps
+    shard_drops: int = 0           # dead shards dropped (sharded engines)
+    trees_lost: int = 0            # trees lost to dropped shards (accuracy
+                                   # degradation: the mean renormalizes over
+                                   # the survivors; a swap restores the full
+                                   # forest and resets this to 0)
 
     def hit_rate(self) -> float:
         total = self.cache_hits + self.cache_misses
@@ -135,8 +140,9 @@ class ForestEngine:
     # ---------------------------------------------------------- construction
 
     def _build(self, est: ExtraTreesRegressor) -> dict[str, PredictorBackend]:
-        """Build the backend table for one estimator — both __init__ and
-        swap_estimator route through it."""
+        """Build the backend table for one estimator. Subclasses override
+        this single hook (``ShardedForestEngine`` returns its partitioned
+        path) — both __init__ and swap_estimator route through it."""
         cfg = self.config
         only = cfg.backends
         if self._choice != "auto":
@@ -204,6 +210,7 @@ class ForestEngine:
             self._generation += 1
             self.stats.generation = self._generation
             self.stats.swaps += 1
+            self.stats.trees_lost = 0   # a swap serves a full fresh forest
             return self._generation
 
     # ------------------------------------------------------------ sync batch
@@ -351,6 +358,24 @@ class ForestEngine:
         with self._cond:
             return EngineStats(**self.stats.__dict__)
 
+    def register_metrics(self, registry, **labels: str) -> None:
+        """Expose the engine through an ``obs.MetricsRegistry``.  All lazy
+        callbacks (scrape-time reads of the stats object) — the predict
+        hot path is untouched.  ``labels`` (e.g. ``replica="r0"``) keep
+        multiple engines distinct in one registry."""
+        for name in ("requests", "predictions", "cache_hits",
+                     "cache_misses", "backend_rows", "batches",
+                     "flushes_size", "flushes_deadline", "flushes_manual",
+                     "swaps", "shard_drops", "trees_lost"):
+            registry.register_fn(f"engine.{name}",
+                                 lambda n=name: getattr(self.stats, n),
+                                 kind="counter", **labels)
+        registry.register_fn("engine.generation",
+                             lambda: self.stats.generation, **labels)
+        registry.register_fn("engine.hit_rate",
+                             lambda: self.stats.hit_rate(), **labels)
+        registry.register_fn("engine.cache_len", self.cache_len, **labels)
+
     # ------------------------------------------------------------- lifecycle
 
     def cache_len(self) -> int:
@@ -480,6 +505,39 @@ class MultiDeviceEngine:
         ]
 
     # -------------------------------------------------------------- hot-swap
+
+    def add_device(self, name: str, time_engine, power_engine=None, *,
+                   count: int = 1, freq_scale: float | None = None,
+                   freq_grid: tuple | None = None,
+                   power_split=None) -> None:
+        """Admit a NEW device type into the pricing matrix mid-serve.
+
+        This is the graduation endpoint: a device that arrived unseen and
+        was served behind the frontend by the cold-start transfer tier
+        enters the scheduler's (kernels × devices) matrix here, priced by
+        its freshly fitted engines. ``time_engine`` must produce log-time
+        when the frontend runs ``log_time=True`` (a graduated
+        ``TransferPredictor.to_forest()`` fit does).
+
+        Lock-free swap discipline: the engine/count/grid tables are
+        REPLACED (copy + rebind), never mutated in place, so a concurrent
+        ``price``/``to_device_predictors`` iterating the old tables sees a
+        consistent pre-admission matrix and the next call sees the device.
+        """
+        if name in self.engines:
+            raise ValueError(f"device {name!r} already priced "
+                             f"(have {self.device_names})")
+        self.engines = {**self.engines,
+                        name: {self.TIME: time_engine,
+                               self.POWER: power_engine}}
+        if count != 1:
+            self.counts = {**self.counts, name: int(count)}
+        if freq_scale is not None:
+            self.freq_scales = {**self.freq_scales, name: float(freq_scale)}
+        if freq_grid is not None:
+            self.freq_grids = {**self.freq_grids, name: tuple(freq_grid)}
+        if power_split is not None:
+            self.power_splits = {**self.power_splits, name: power_split}
 
     def swap_fits(self, fits: dict[str, tuple]) -> dict[str, int]:
         """Hot-swap refreshed forests into the live per-device engines.

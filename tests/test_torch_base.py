@@ -309,7 +309,9 @@ def test_default_device_is_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks a card-less host")
     from repro_torch.core.forest_torch import DenseForestTorch, FlatForestTorch
-    from repro_torch.serve import ForestEngine, build_backends
+    from repro_torch.cluster.remote import demo_frontend
+    from repro_torch.serve import (ForestEngine, ShardedForestEngine,
+                                   build_backends)
     from repro_torch.workloads.collect import collect
     from repro_torch.workloads.stream import StreamingCollector
     X, y = _data(10)
@@ -319,6 +321,8 @@ def test_default_device_is_the_card():
                  lambda: FlatForestTorch(est.to_flat()),
                  lambda: DenseForestTorch(p_to_dense(est, 4)),
                  lambda: collect(),
-                 lambda: StreamingCollector(p_dataset.DatasetStore())):
+                 lambda: StreamingCollector(p_dataset.DatasetStore()),
+                 lambda: ShardedForestEngine(est),
+                 lambda: demo_frontend()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -1,6 +1,8 @@
 """Helpers of ``chip_smoke.py`` that run without a card: the kernel names
-read from the SASS dump's mangled symbols, and the SSD scan's bound with
-and without the bf16 kernel's per-chunk state traffic."""
+read from the SASS dump's mangled symbols, the SSD scan's bound with and
+without the bf16 kernel's per-chunk state traffic, the serving tier's
+oracle over a sharded forest's surviving trees, and the comparison of two
+replays of one trace event by event."""
 import sys
 from pathlib import Path
 
@@ -45,3 +47,43 @@ def test_ssd_bound_counts_the_state_traffic():
     assert ms == pytest.approx(n_bytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
     assert work["bound_with_states_ms"] == pytest.approx(
         (n_bytes + work["state_bytes"]) / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_plain_subset_is_the_mean_of_its_trees():
+    """The serving-tier oracle: over every tree it is ``plain_cpu``, bit for
+    bit; over the survivors of a drop, the mean of those trees."""
+    import numpy as np
+
+    from repro_torch.core.forest import ExtraTreesRegressor
+    from repro_torch.core.forest_torch import to_dense
+    rng = np.random.default_rng(1)
+    X = rng.lognormal(1.0, 1.5, size=(60, 5)).astype(np.float32)
+    y = np.log(2 * X[:, 0] + X[:, 2] + 1.0)
+    est = ExtraTreesRegressor(n_estimators=7, max_depth=5, seed=0).fit(X, y)
+    dense = to_dense(est, chip_smoke.DEPTH)
+    np.testing.assert_array_equal(chip_smoke.plain_subset(dense, range(7), X),
+                                  chip_smoke.plain_cpu(est, X))
+    live = [1, 3, 4]
+    np.testing.assert_allclose(
+        chip_smoke.plain_subset(dense, live, X),
+        np.mean([est.trees_[i].predict(X) for i in live], axis=0),
+        rtol=1e-5)
+
+
+def test_replay_mismatches_flags_each_difference():
+    from repro_torch.workloads.trace import EventOutcome, ReplayReport
+
+    def report(*outcomes):
+        return ReplayReport("t", "sequential", 1.0, list(outcomes), {}, 0.0)
+    base = [EventOutcome(0, "a", "k0", "served", 2.5),
+            EventOutcome(1, "b", "k1", "shed"),
+            EventOutcome(2, "a", "k2", "served", -1.0)]
+    host = report(*base)
+    assert chip_smoke.replay_mismatches(host, report(*base)) == []
+    near = EventOutcome(0, "a", "k0", "served", 2.5 * (1 + 1e-7))
+    assert chip_smoke.replay_mismatches(host, report(near, *base[1:])) == []
+    far = EventOutcome(0, "a", "k0", "served", 2.5 * (1 + 1e-4))
+    shed = EventOutcome(2, "a", "k2", "shed")
+    off = chip_smoke.replay_mismatches(
+        host, report(far, shed, EventOutcome(7, "a", "k7", "served", 1.0)))
+    assert [i for i, _ in off] == [0, 1, 2, 7]
