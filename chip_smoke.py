@@ -15,7 +15,10 @@ Drives the port's serving and training paths on the card at full width:
   steps through ``repro_torch.launch.serve.generate``;
 * the same model trained through ``repro_torch.launch.train``: 4 AdamW
   steps of 4 x 1024 tokens in 2 microbatches, bf16 activations over f32
-  parameters and moments, activation checkpointing as configured.
+  parameters and moments, activation checkpointing as configured;
+* smollm-360m, the launchers' default, served (4 x 512 prompts, 32 tokens)
+  and trained (4 steps of 8 x 1024 tokens) at full width and depth, and
+  the MoE, VLM, xLSTM and enc-dec families at full width with depth cut.
 
 Phases, one JSON line each:
 
@@ -130,11 +133,39 @@ Phases, one JSON line each:
                and gradient norm beside the plain path, a second correct
                order and two broken kernels (reported; PERF.md says why no
                limit holds them)
+  lm_dense_serve  smollm-360m (32 layers, d_model 960, 15 heads over 5 KV
+               heads of 64), the launchers' default, at full width: 4
+               prompts of 512 tokens and 32 greedy tokens through
+               generate(); no kernel launch (its serving attention is plain
+               torch, as the reference's is jnp), tokens in range
+  lm_dense_timing  its prefill ms (median of 3), decode ms per token and
+               tokens/s; one prefill and one decode step traced
+  lm_dense_train  smollm-360m trained through ``launch.train.main`` with the
+               launcher's defaults (4 steps of 8 x 1024 tokens, 2
+               microbatches, groups of 8 layers checkpointed in their
+               group's checkpoint): 184 B2 launches per step asserted (the
+               count ``train_launches_per_step`` derives), losses finite;
+               one more step with every B2 call held in place; step ms,
+               tokens/s, peak GB, a traced step; B2 at (4, 15, 5, 1024,
+               1024, 64) beside its plain version, its bound and SDPA
+  lm_dense_train_f32  one whole f32 step of smollm-360m (1 x 1024) through
+               B2 beside the plain path: B2 and its plain version held
+               within DENSE_F32_REL on loss and gradient norm, a
+               non-causal attention fault landing 5x above it
+  lm_families  granite-moe-3b-a800m, qwen2-vl-7b, xlstm-125m and
+               whisper-medium at full width with depth cut (2 layers; xlstm
+               one group of 4; whisper 2 + 2): one prefill and 8 greedy
+               steps through generate(), no kernel launch; one training step
+               with B2 launches asserted (none for xlstm) and every B2 call
+               held in place; logits and losses finite
 
 then a ``{"kernels": [...]}`` line (the forest kernel's entry counts its
 launches on each path: ``launches`` in serve, then ``frontend_launches``,
 ``ground_truth_launches``, ``stream_launches``, ``sharded_launches``,
-``cluster_launches`` and ``supervise_launches``), the card's name and power
+``cluster_launches`` and ``supervise_launches``; the flash-attention
+entry's ``launches`` are zamba2's training run's, ``smollm_launches``
+smollm-360m's and ``families_launches`` the depth-cut families' step's,
+with smollm's shape and times beside zamba2's), the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}`` last. Any
 failed check raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result. The kernels build into
@@ -209,6 +240,42 @@ FLASH_BF16_CASE = (1, 2, 2, 32, 32, 16, True)
 FLASH_TRAIN = (2, 32, 32, 1024, 1024, 80, True)
 FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
              "bfloat16": dict(rtol=0.08, atol=0.08)}
+
+# the other LM families (models/lm.py, moe.py, xlstm*.py, encdec.py): B2 at
+# each family's training shape, one microbatch, causal, (B, Hq, Hkv, Sq,
+# Skv, D) in the model's (B, S, H, D) layout
+FLASH_MODEL_CASES = {"smollm-360m": (4, 15, 5, 1024, 1024, 64),
+                     "granite-moe-3b-a800m": (2, 24, 8, 256, 256, 64),
+                     "qwen2-vl-7b": (1, 28, 4, 512, 512, 128),
+                     "whisper-medium": (2, 16, 16, 256, 256, 64)}
+# smollm-360m, the launchers' default, at full width and depth: serving 4
+# prompts of 512 tokens and 32 greedy tokens (plain attention, as the
+# reference's jnp; no kernel), training 4 steps of 8 x 1024 tokens in the
+# config's 2 microbatches (B2 for every causal attention), and one whole
+# f32 step (batch 1 x 1024) beside the plain path
+DENSE_ARCH = "smollm-360m"
+DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 512, 32
+DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ, DENSE_TRAIN_STEPS = 8, 1024, 4
+DENSE_F32_BATCH, DENSE_F32_SEQ = 1, 1024
+# ... held to the plain path on loss and gradient norm, as shares of the
+# plain path's: PERF.md's rule (3x the largest correct reading, kept only
+# if the broken kernel lands 5x above it). The first run on an H100 (700
+# W) read B2 1.73e-7 / 2.32e-5 and B2's plain version 8.7e-8 / 1.32e-5
+# apart; the non-causal fault 1.74e-3 / 1.36e-2, 3,300x and 195x above
+# these limits
+DENSE_F32_REL = {"loss": 5.3e-7, "grad_norm": 7.0e-5}
+# the four other families at full width with depth cut (a check, not a
+# cell): 2 layers (xlstm: one group of 4, whisper: 2 encoder + 2 decoder
+# layers); one prefill of 2 x 256 tokens and 8 greedy steps through
+# generate, then one training step of the config's microbatches, each of
+# the per-microbatch batch and length of FLASH_MODEL_CASES (xlstm: 2 x 256)
+FAMILY_CUTS = {"granite-moe-3b-a800m": dict(n_layers=2),
+               "qwen2-vl-7b": dict(n_layers=2),
+               "xlstm-125m": dict(n_layers=4),
+               "whisper-medium": dict(n_layers=2, n_enc_layers=2)}
+FAMILY_TRAIN = {"granite-moe-3b-a800m": (2, 256), "qwen2-vl-7b": (1, 512),
+                "xlstm-125m": (2, 256), "whisper-medium": (2, 256)}
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 2, 256, 8
 
 # the LM training path: zamba2-2.7b at full width through launch/train.py,
 # global batch 4 x 1024 in the config's 2 microbatches, 1 warm-up step and
@@ -628,9 +695,11 @@ def flash_bound(q, k, kv_len: int | None = None,
 def flash_kernel_phase(dev) -> dict:
     """The flash-attention kernel against its plain version on the same
     CUDA tensors: the reference's five test shapes and its bf16 case,
-    zamba2's training shape, the model's (B, S, H, D) strides, rows that
-    see no key, keys masked past kv_len; bitwise repeatable; the
-    autograd.Function's gradients against autograd of the plain version."""
+    zamba2's training shape, each other family's training shape
+    (FLASH_MODEL_CASES: GQA groups of 3 and 7, an odd head count, D 128),
+    the model's (B, S, H, D) strides, rows that see no key, keys masked past
+    kv_len; bitwise repeatable; the autograd.Function's gradients against
+    autograd of the plain version."""
     import torch
     from repro_torch.kernels.attention import ops as fops
     from repro_torch.kernels.attention.kernel import flash_attention_kernel
@@ -639,6 +708,8 @@ def flash_kernel_phase(dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         cases += [(*shape, dtype, False) for shape in FLASH_CASES]
         cases += [(*FLASH_TRAIN, dtype, False), (*FLASH_TRAIN, dtype, True)]
+        cases += [(*shape, True, dtype, True)
+                  for shape in FLASH_MODEL_CASES.values()]
     cases.append((*FLASH_BF16_CASE, torch.bfloat16, False))
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     results = []
@@ -850,25 +921,78 @@ def lm_timing_phase(dev, served: dict, smi: str) -> dict:
 
 
 def train_launches_per_step(cfg) -> dict:
-    """Kernel launches of one training step, from the code: each of the
-    config's microbatches runs the model forward once and, under the nested
-    remat of ``models/zamba.py``, runs each group body again in the
-    backward pass (its shared-block attention: twice in all; its Mamba
-    layers: twice) and each Mamba layer once more inside that (three times
-    in all). The backward passes recompute the plain versions, launching
-    nothing."""
-    groups = cfg.n_layers // cfg.shared_attn_every
-    attn, ssd = ((2 * groups, 3 * cfg.n_layers) if cfg.remat
-                 else (groups, cfg.n_layers))
+    """Kernel launches of one training step, from the code. Each of the
+    config's microbatches runs the model forward once; the backward passes
+    recompute the plain versions, launching nothing, but activation
+    checkpointing runs forwards again:
+
+    * zamba2 (``models/zamba.py``): each group body runs again in the
+      backward pass (its shared-block attention: twice in all; its Mamba
+      layers: twice) and each Mamba layer once more inside that (three
+      times in all);
+    * dense, moe, vlm (``models/lm.py``): each layer's checkpoint runs its
+      attention once more; with ``remat_grouped`` (groups of L / G layers
+      nested in their group's checkpoint) the group's recomputation runs
+      every layer of the group again but its last, because torch's
+      non-reentrant checkpoint stops recomputing once it holds every tensor
+      the backward needs (the last layer's input): 3 L - G calls;
+    * encdec: the decoder's self-attention, once more per layer under remat
+      (the encoder and the cross-attention are plain);
+    * xlstm: no attention, no kernel."""
+    from repro_torch.models.lm import remat_grouped
+    fam, L = cfg.family, cfg.n_layers
+    attn, ssd = 0, 0
+    if fam == "mamba_hybrid":
+        groups = L // cfg.shared_attn_every
+        attn, ssd = (2 * groups, 3 * L) if cfg.remat else (groups, L)
+    elif fam in ("dense", "moe", "vlm"):
+        attn = (3 * L - cfg.remat_groups if remat_grouped(cfg)
+                else 2 * L if cfg.remat else L)
+    elif fam == "encdec":
+        attn = 2 * L if cfg.remat else L
+    elif fam != "xlstm":
+        raise ValueError(f"unknown family {fam!r}")
     return {"flash_attention": attn * cfg.microbatches,
             "ssd_scan": ssd * cfg.microbatches}
 
 
-def lm_train_phase(dev) -> dict:
-    """zamba2-2.7b trained at full width on the card through the
-    launcher's entry point (``launch.train.main``): kernel launches
-    counted, the loss finite at every step; then one more step with every
-    kernel call held in place to its plain version."""
+def flash_timing(dev, shape) -> dict:
+    """The flash-attention kernel at ``shape`` (B, Hq, Hkv, Sq, Skv, D),
+    causal, bf16, in the model's (B, S, H, D) layout: events ms, device ms,
+    its plain version's ms, the bound, and SDPA's ms (timed as a yardstick
+    only, on contiguous copies)."""
+    import torch
+    from repro_torch.kernels.attention import ops as fops
+    from repro_torch.kernels.attention.ref import attention_ref
+    q, k, v = flash_inputs(dev, *shape, torch.bfloat16, seed=7,
+                           model_layout=True)
+
+    def launch():
+        return fops.flash_attention(q, k, v, causal=True)
+    k_ms = cuda_ms(launch, iters=30, warmup=3)
+    d_ms = kernel_device_ms(launch, FLASH_KERNELS, iters=10)
+    p_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), iters=5,
+                   warmup=1)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=shape[1] != shape[2]),
+        iters=30, warmup=3)
+    b_ms, b_by, work = flash_bound(q, k)
+    return {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, **work, "library_ms": lib_ms,
+            "shape": dict(zip(("B", "Hq", "Hkv", "Sq", "Skv", "D"), shape),
+                          causal=True, dtype="bfloat16",
+                          layout="(B, S, H, D) transposed")}
+
+
+def launcher_training(dev, arch: str, steps: int, batch: int,
+                      seq: int) -> dict:
+    """``arch`` trained at full width on the card through the launcher's
+    entry point (``launch.train.main``, the config's microbatches): kernel
+    launches counted against ``train_launches_per_step``, the loss finite
+    at every step; then one more step with every kernel call held in place
+    to its plain version (TRAIN_CALL_REL). Returns what the phases report
+    and the state, step and batch for timing."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -881,24 +1005,25 @@ def lm_train_phase(dev) -> dict:
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.step import make_train_step
 
-    cfg = replace(get_config(LM_ARCH), use_pallas=True)
+    cfg = replace(get_config(arch), use_pallas=True)
     per_step = train_launches_per_step(cfg)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    argv = ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
-            str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--microbatches",
-            str(cfg.microbatches), "--seed", "0", "--device", str(dev)]
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+            "--seq-len", str(seq), "--microbatches", str(cfg.microbatches),
+            "--seed", "0", "--device", str(dev)]
     sops.launches = fops.launches = 0         # count the main path's launches
     t0 = time.perf_counter()
     out = train_main(argv)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {"flash_attention": fops.launches, "ssd_scan": sops.launches}
-    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    want = {k: v * steps for k, v in per_step.items()}
     if launches != want:
-        raise AssertionError(f"{launches} kernel launches in {TRAIN_STEPS} "
+        raise AssertionError(f"{launches} kernel launches in {steps} {arch} "
                              f"training steps, expected {want}")
     losses = out["losses"]
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+    if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"training losses {losses}")
     step_s = [t for _, t in out["monitor"].history]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -907,17 +1032,17 @@ def lm_train_phase(dev) -> dict:
     state = out["state"]
     del out
     model = build_model(cfg)
-    step = make_train_step(model, OptConfig(lr=3e-3, total_steps=TRAIN_STEPS,
+    step = make_train_step(model, OptConfig(lr=3e-3, total_steps=steps,
                                             warmup_steps=5),
                            n_microbatches=cfg.microbatches)
     gen = SyntheticLM(cfg.vocab, seed=0)
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in
-             gen.batch(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ).items()}
+    data = {k: torch.as_tensor(v, device=dev) for k, v in
+            gen.batch(steps, batch, seq).items()}
     records = {}
     with watching(inplace_check(records)):
-        state, metrics = step(state, batch)
+        state, metrics = step(state, data)
     calls = {k: len(v) for k, v in records.items()}
-    if calls != per_step:
+    if calls != {k: v for k, v in per_step.items() if v}:
         raise AssertionError(f"{calls} kernel calls in the checked step, "
                              f"expected {per_step}")
     worst = {k: [max(e[j] for e in v) for j in range(len(v[0]))]
@@ -928,16 +1053,31 @@ def lm_train_phase(dev) -> dict:
         raise AssertionError(f"in-place checks off their plain versions "
                              f"(worst, limits): {bad}; loss "
                              f"{float(metrics['loss'])}")
-    emit("lm_train", arch=LM_ARCH, params=model.n_params(),
+    return {"cfg": cfg, "params": model.n_params(), "run_s": run_s,
+            "losses": losses, "step_s": step_s, "peak_memory_gb": peak_gb,
+            "launches": launches, "per_step": per_step,
+            "checked_step_loss": float(metrics["loss"]),
+            "checked_calls": calls, "worst_call_rel": worst,
+            "state": state, "step": step, "batch": data}
+
+
+def lm_train_phase(dev) -> dict:
+    """zamba2-2.7b trained at full width through ``launch.train.main``
+    (``launcher_training``)."""
+    run = launcher_training(dev, LM_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    cfg = run["cfg"]
+    emit("lm_train", arch=LM_ARCH, params=run["params"],
          layers=cfg.n_layers, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-         microbatches=cfg.microbatches, steps=TRAIN_STEPS, run_s=run_s,
-         losses=losses, step_s=step_s, peak_memory_gb=peak_gb,
-         launches=launches, launches_per_step=per_step,
-         checked_step_loss=float(metrics["loss"]), checked_calls=calls,
-         worst_call_rel=worst, call_limits=TRAIN_CALL_REL)
-    return {"state": state, "batch": batch, "step": step,
-            "step_s": step_s, "launches": launches, "per_step": per_step,
-            "microbatches": cfg.microbatches}
+         microbatches=cfg.microbatches, steps=TRAIN_STEPS,
+         **{k: run[k] for k in ("run_s", "losses", "step_s",
+                                "peak_memory_gb", "launches")},
+         launches_per_step=run["per_step"],
+         **{k: run[k] for k in ("checked_step_loss", "checked_calls",
+                                "worst_call_rel")},
+         call_limits=TRAIN_CALL_REL)
+    return {"state": run["state"], "batch": run["batch"], "step": run["step"],
+            "step_s": run["step_s"], "launches": run["launches"],
+            "per_step": run["per_step"], "microbatches": cfg.microbatches}
 
 
 def lm_train_f32_phase(dev) -> dict:
@@ -1009,8 +1149,6 @@ def train_timing_phase(dev, trained: dict, smi: str) -> dict:
     its bound and SDPA (timed as the yardstick only)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.attention import ops as fops
-    from repro_torch.kernels.attention.ref import attention_ref
 
     warmup_s, timed = trained["step_s"][0], trained["step_s"][1:]
     trained_microbatches = trained["microbatches"]
@@ -1021,26 +1159,7 @@ def train_timing_phase(dev, trained: dict, smi: str) -> dict:
     trained.clear()                            # free the training state
     torch.cuda.empty_cache()
 
-    q, k, v = flash_inputs(dev, *FLASH_TRAIN[:6], torch.bfloat16, seed=7,
-                           model_layout=True)
-
-    def launch():
-        return fops.flash_attention(q, k, v, causal=True)
-    k_ms = cuda_ms(launch, iters=30, warmup=3)
-    d_ms = kernel_device_ms(launch, FLASH_KERNELS, iters=10)
-    p_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), iters=5,
-                   warmup=1)
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qc, kc, vc, is_causal=True), iters=30, warmup=3)
-    b_ms, b_by, work = flash_bound(q, k)
-    flash = {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
-             "bound_ms": b_ms, "bound_by": b_by, **work, "library_ms": lib_ms,
-             "shape": {"B": FLASH_TRAIN[0], "Hq": FLASH_TRAIN[1],
-                       "Hkv": FLASH_TRAIN[2], "Sq": FLASH_TRAIN[3],
-                       "Skv": FLASH_TRAIN[4], "D": FLASH_TRAIN[5],
-                       "causal": True, "dtype": "bfloat16",
-                       "layout": "(B, S, H, D) transposed"}}
+    flash = flash_timing(dev, FLASH_TRAIN[:6])
     # the SSD kernel at the training shape: one microbatch of the config's
     # 2, so 2 x 1024 tokens a call
     ssd = ssd_timing(dev, TRAIN_BATCH // trained_microbatches, TRAIN_SEQ)
@@ -1054,6 +1173,283 @@ def train_timing_phase(dev, trained: dict, smi: str) -> dict:
          step_trace=trace, flash=flash, ssd=ssd,
          card=smi)
     return {"flash": flash, "ssd": ssd}
+
+
+def lm_dense_serve_phase(dev) -> dict:
+    """smollm-360m at full width and depth on the card: generate() with its
+    kernel launches counted (none: its serving attention is plain torch, as
+    the reference's is jnp), the tokens in range (generate raises on any
+    non-finite logit)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.attention import ops as fops
+    from repro_torch.kernels.mamba import ops as sops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    cfg = get_config(DENSE_ARCH)
+    model = build_model(replace(cfg, use_pallas=True))
+    params = model.init(seed=0, device=dev)
+    batch = model.make_batch(ShapeConfig("serve", DENSE_PROMPT, DENSE_BATCH,
+                                         "prefill"), seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sops.launches = fops.launches = 0         # count the main path's launches
+    t0 = time.perf_counter()
+    tokens, times = generate(model, params, batch, DENSE_GEN)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {"flash_attention": fops.launches, "ssd_scan": sops.launches}
+    if any(launches.values()):
+        raise AssertionError(f"{launches} kernel launches serving "
+                             f"{DENSE_ARCH}: its serving attention is plain")
+    if (tuple(tokens.shape) != (DENSE_BATCH, DENSE_GEN)
+            or len(times) != DENSE_GEN or int(tokens.min()) < 0
+            or int(tokens.max()) >= cfg.vocab):
+        raise AssertionError(f"bad generation: {tuple(tokens.shape)}")
+    emit("lm_dense_serve", arch=DENSE_ARCH, params=model.n_params(),
+         layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+         kv_heads=cfg.n_kv_heads, batch=DENSE_BATCH, prompt=DENSE_PROMPT,
+         generated=DENSE_GEN, init_s=init_s, serve_s=serve_s,
+         launches=launches, tokens_head=tokens[0, :8].tolist())
+    return {"model": model, "params": params, "batch": batch, "times": times,
+            "seconds": init_s + serve_s}
+
+
+def lm_dense_timing_phase(dev, served: dict, smi: str) -> dict:
+    """Prefill (median of 3) and decode times of the served smollm-360m;
+    one prefill and one decode step traced."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import place_prefill_caches
+
+    t_phase = time.perf_counter()
+    model, params, batch = served["model"], served["params"], served["batch"]
+    pre = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    prefill_ms = float(np.median(pre)) * 1e3
+    decode_ms = float(np.median(served["times"])) * 1e3
+    prefill_trace = profile_breakdown(lambda: model.prefill(params, batch))
+    _, caches = model.prefill(params, batch)
+    caches = place_prefill_caches(model, caches, DENSE_PROMPT + 1)
+    step = {"tokens": batch["tokens"][:, -1:], "pos": DENSE_PROMPT}
+    decode_trace = profile_breakdown(
+        lambda: model.decode(params, step, caches))
+    del caches
+    out = {"prefill_ms": prefill_ms, "decode_ms_median": decode_ms,
+           "decode_tokens_per_s": DENSE_BATCH / decode_ms * 1e3,
+           "prefill_tokens_per_s": DENSE_BATCH * DENSE_PROMPT / prefill_ms
+           * 1e3}
+    emit("lm_dense_timing", arch=DENSE_ARCH, batch=DENSE_BATCH,
+         prompt=DENSE_PROMPT, **out, prefill_runs_ms=[t * 1e3 for t in pre],
+         decode_ms_all=[t * 1e3 for t in served["times"]],
+         prefill_trace=prefill_trace, decode_trace=decode_trace,
+         seconds=time.perf_counter() - t_phase, card=smi)
+    return out
+
+
+def lm_dense_train_phase(dev, smi: str) -> dict:
+    """smollm-360m trained at full width through ``launch.train.main``
+    (``launcher_training``: B2 launches counted, every B2 call of one more
+    step held in place); step time, tokens/s, peak memory, one traced step;
+    B2 at this shape beside its plain version, its bound and SDPA."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    run = launcher_training(dev, DENSE_ARCH, DENSE_TRAIN_STEPS,
+                            DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ)
+    cfg = run["cfg"]
+    trace = profile_breakdown(lambda: run["step"](run["state"], run["batch"]),
+                              {"flash": FLASH_KERNELS}, top=12)
+    for k in ("state", "step", "batch"):
+        del run[k]
+    torch.cuda.empty_cache()
+    flash = flash_timing(dev, FLASH_MODEL_CASES[DENSE_ARCH])
+    step_ms = float(np.median(run["step_s"][1:])) * 1e3
+    emit("lm_dense_train", arch=DENSE_ARCH, params=run["params"],
+         layers=cfg.n_layers, global_batch=DENSE_TRAIN_BATCH,
+         seq=DENSE_TRAIN_SEQ, microbatches=cfg.microbatches,
+         remat_groups=cfg.remat_groups, steps=DENSE_TRAIN_STEPS,
+         **{k: run[k] for k in ("run_s", "losses", "step_s",
+                                "peak_memory_gb", "launches")},
+         launches_per_step=run["per_step"], step_ms_median=step_ms,
+         tokens_per_s=DENSE_TRAIN_BATCH * DENSE_TRAIN_SEQ / step_ms * 1e3,
+         **{k: run[k] for k in ("checked_step_loss", "checked_calls",
+                                "worst_call_rel")},
+         call_limits=TRAIN_CALL_REL,
+         flash_share_of_step=trace["flash"]["ms"] / step_ms,
+         step_trace=trace, flash=flash,
+         seconds=time.perf_counter() - t_phase, card=smi)
+    return {"launches": run["launches"], "per_step": run["per_step"],
+            "flash": flash}
+
+
+def lm_dense_train_f32_phase(dev) -> dict:
+    """One whole f32 step (loss and gradient norm) of smollm-360m at full
+    width through B2, beside the plain path (``use_pallas=False``), a
+    second correct order (B2's output replaced by its plain version,
+    ``attention_ref``) and a broken kernel (attention without its causal
+    mask), all on the same parameters and tokens. Both correct readings
+    are held to DENSE_F32_REL, and the fault must land 5x above it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.watch import watching
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.step import loss_and_grads
+
+    t_phase = time.perf_counter()
+    cfg = replace(get_config(DENSE_ARCH), dtype="float32")
+    params = build_model(cfg).init(0, dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        cfg.vocab, seed=0).batch(0, DENSE_F32_BATCH, DENSE_F32_SEQ).items()}
+
+    def run(use_pallas: bool, causal: bool | None = None):
+        model = build_model(replace(cfg, use_pallas=use_pallas))
+
+        def swap(name, inputs, output):
+            if causal is None or name != "flash_attention":
+                return None
+            return attention_ref(inputs["q"], inputs["k"], inputs["v"],
+                                 causal=causal, sm_scale=inputs["sm_scale"])
+        with watching(swap):
+            loss, grads = loss_and_grads(model, params, batch)
+        return float(loss), float(global_norm(dict(enumerate(grads))))
+
+    plain = run(False)
+    readings = {"kernels": run(True),
+                "attention_plain_version": run(True, causal=True),
+                "fault_attention_not_causal": run(True, causal=False)}
+    apart = {k: {"loss": abs(v[0] - plain[0]) / abs(plain[0]),
+                 "grad_norm": abs(v[1] - plain[1]) / abs(plain[1])}
+             for k, v in readings.items()}
+    emit("lm_dense_train_f32", arch=DENSE_ARCH, batch=DENSE_F32_BATCH,
+         seq=DENSE_F32_SEQ, plain={"loss": plain[0], "grad_norm": plain[1]},
+         readings={k: {"loss": v[0], "grad_norm": v[1]}
+                   for k, v in readings.items()},
+         apart_from_plain=apart, limits=DENSE_F32_REL,
+         seconds=time.perf_counter() - t_phase)
+    if not all(np.isfinite(v).all() for v in (plain, *readings.values())):
+        raise AssertionError(f"non-finite f32 step: {readings}, plain {plain}")
+    for name in ("kernels", "attention_plain_version"):
+        if any(apart[name][k] > lim for k, lim in DENSE_F32_REL.items()):
+            raise AssertionError(f"f32 step through {name}: {apart[name]} "
+                                 f"of the plain path's, limits "
+                                 f"{DENSE_F32_REL}")
+    fault = apart["fault_attention_not_causal"]
+    if not all(fault[k] > 5 * lim for k, lim in DENSE_F32_REL.items()):
+        raise AssertionError(f"the non-causal fault lands {fault} off the "
+                             f"plain path, not 5x above the limits "
+                             f"{DENSE_F32_REL}: the limit cannot tell it "
+                             f"from a correct kernel")
+    return apart
+
+
+def lm_families_phase(dev, smi: str) -> dict:
+    """granite-moe-3b-a800m, qwen2-vl-7b, xlstm-125m and whisper-medium at
+    full width with depth cut (FAMILY_CUTS): one prefill and FAMILY_GEN
+    greedy steps through generate (no kernel launch: serving attention is
+    plain), then one training step of the config's microbatches with
+    use_pallas, its B2 launches counted against the count the code implies
+    and every B2 call held in place to its plain version; every logit and
+    loss finite."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.attention import ops as fops
+    from repro_torch.kernels.mamba import ops as sops
+    from repro_torch.kernels.watch import watching
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+
+    results = {}
+    total = {"flash_attention": 0, "ssd_scan": 0}
+    limit = TRAIN_CALL_REL["flash_attention"][0]
+    for arch, cut in FAMILY_CUTS.items():
+        t_arch = time.perf_counter()
+        cfg = replace(get_config(arch), use_pallas=True, **cut)
+        model = build_model(cfg)
+        params = model.init(seed=0, device=dev)
+        batch = model.make_batch(ShapeConfig(
+            "serve", FAMILY_PROMPT, FAMILY_BATCH, "prefill"), seed=0,
+            device=dev)
+        sops.launches = fops.launches = 0     # count this path's launches
+        tokens, times = generate(model, params, batch, FAMILY_GEN)
+        torch.cuda.synchronize()
+        served = {"flash_attention": fops.launches, "ssd_scan": sops.launches}
+        if (any(served.values())
+                or tuple(tokens.shape) != (FAMILY_BATCH, FAMILY_GEN)
+                or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab):
+            raise AssertionError(f"{arch}: {served} launches serving, tokens "
+                                 f"{tuple(tokens.shape)}")
+        serve_s = time.perf_counter() - t_arch
+
+        per_step = train_launches_per_step(cfg)
+        mb_batch, seq = FAMILY_TRAIN[arch]
+        train_batch = model.make_batch(ShapeConfig(
+            "train", seq, mb_batch * cfg.microbatches, "train"), seed=1,
+            device=dev)
+        state = {"params": params, "opt": init_opt_state(params)}
+        step = make_train_step(model, OptConfig(lr=1e-4, total_steps=10,
+                                                warmup_steps=1),
+                               n_microbatches=cfg.microbatches)
+        records = {}
+        torch.cuda.reset_peak_memory_stats()
+        sops.launches = fops.launches = 0
+        t0 = time.perf_counter()
+        with watching(inplace_check(records)):
+            state, metrics = step(state, train_batch)
+        loss = float(metrics["loss"])
+        train_s = time.perf_counter() - t0
+        launches = {"flash_attention": fops.launches,
+                    "ssd_scan": sops.launches}
+        calls = len(records.get("flash_attention", []))
+        worst = max((e[0] for e in records.get("flash_attention", [])),
+                    default=0.0)
+        if launches != per_step or calls != per_step["flash_attention"]:
+            raise AssertionError(f"{arch}: {launches} launches and {calls} "
+                                 f"checked calls in a step, expected "
+                                 f"{per_step}")
+        if not worst <= limit or not np.isfinite(loss):
+            raise AssertionError(f"{arch}: a B2 call {worst} of its largest "
+                                 f"value off its plain version (limit "
+                                 f"{limit}); loss {loss}")
+        for k in total:
+            total[k] += launches[k]
+        results[arch] = {
+            "cut": cut, "params": model.n_params(), "d_model": cfg.d_model,
+            "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.resolved_head_dim, "serve_batch": FAMILY_BATCH,
+            "prompt": FAMILY_PROMPT, "generated": FAMILY_GEN,
+            "tokens_head": tokens[0, :4].tolist(),
+            "decode_ms_median": float(np.median(times)) * 1e3,
+            "serve_s": serve_s, "train_batch": mb_batch * cfg.microbatches,
+            "train_seq": seq, "microbatches": cfg.microbatches,
+            "loss": loss, "train_s": train_s,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": launches, "worst_call_rel": worst,
+            "seconds": time.perf_counter() - t_arch}
+        del model, params, state, step, train_batch, batch, metrics
+        torch.cuda.empty_cache()
+    emit("lm_families", families=results, call_limit=limit,
+         seconds=sum(r["seconds"] for r in results.values()), card=smi)
+    return {"launches": total, "results": results}
 
 
 def extract_slice(indices: list) -> list:
@@ -2237,6 +2633,16 @@ def main() -> int:
         train_t = train_timing_phase(dev, trained, smi)
         flash_t, ssd_t = train_t["flash"], train_t["ssd"]
         lm_train_f32_phase(dev)
+
+        # ---------------------------------- the other LM families
+        torch.cuda.empty_cache()
+        dense_served = lm_dense_serve_phase(dev)
+        lm_dense_timing_phase(dev, dense_served, smi)
+        del dense_served
+        torch.cuda.empty_cache()
+        dense = lm_dense_train_phase(dev, smi)
+        lm_dense_train_f32_phase(dev)
+        families = lm_families_phase(dev, smi)
         t0 = time.perf_counter()
         cv = cv_future.result()
     emit("ground_truth_cv", rows=cv[truth["device"]]["rows"],
@@ -2290,7 +2696,17 @@ def main() -> int:
         "plain_ms": flash_t["plain_ms"], "bound_ms": flash_t["bound_ms"],
         "bound_by": flash_t["bound_by"],
         "library_ms": flash_t["library_ms"],
-        "shape": flash_t["shape"], "cuda_kernels": [FLASH_KERNELS[0]]}]}),
+        "shape": flash_t["shape"], "cuda_kernels": [FLASH_KERNELS[0]],
+        "smollm_launches": dense["launches"]["flash_attention"],
+        "smollm_launches_per_step": dense["per_step"]["flash_attention"],
+        "smollm_shape": dense["flash"]["shape"],
+        "smollm_ms": dense["flash"]["ms"],
+        "smollm_device_ms": dense["flash"]["device_ms"],
+        "smollm_plain_ms": dense["flash"]["plain_ms"],
+        "smollm_bound_ms": dense["flash"]["bound_ms"],
+        "smollm_bound_by": dense["flash"]["bound_by"],
+        "smollm_library_ms": dense["flash"]["library_ms"],
+        "families_launches": families["launches"]["flash_attention"]}]}),
         flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Architecture registry: the 10 assigned configs + shapes (40 cells), copied
-as data from ``repro.configs``. Only the ``mamba_hybrid`` family
-(``zamba2-2.7b``) has a model in the port so far (``models/registry.py``)."""
+as data from ``repro.configs``; every family has a model in the port
+(``models/registry.py``)."""
 from . import (granite_moe_3b_a800m, mistral_large_123b, olmoe_1b_7b,
                qwen1p5_110b, qwen2_vl_7b, qwen2p5_14b, smollm_360m,
                whisper_medium, xlstm_125m, zamba2_2p7b)

@@ -3,8 +3,8 @@
 One ``ModelConfig`` per assigned architecture (exact numbers from the task
 spec, see per-arch files); ``reduced()`` derives the CPU test variant of the
 same family (small widths/layers/experts, tiny vocab), equal to the
-reference's for the same arguments. The port serves the full
-``zamba2-2.7b`` config on the card (``chip_smoke.py``).
+reference's for the same arguments. ``chip_smoke.py`` serves and trains
+the full ``zamba2-2.7b`` and ``smollm-360m`` configs on the card.
 """
 from __future__ import annotations
 

@@ -52,15 +52,19 @@ class SyntheticLM:
 
 class DataPipeline:
     """Host loader with background prefetch; hands out (index, batch) with
-    the batch's tensors on ``device``."""
+    the batch's tensors on ``device``. ``extra_fn(index, batch)`` adds
+    arrays to each batch (a VLM's patches, an enc-dec's frames) and
+    ``transform`` rewrites the host batch last, as in the reference."""
 
     def __init__(self, gen: SyntheticLM, batch: int, seq_len: int,
                  device: str | torch.device = "cuda", prefetch: int = 2,
-                 start_index: int = 0):
+                 start_index: int = 0, extra_fn=None, transform=None):
         self.gen = gen
         self.batch = batch
         self.seq_len = seq_len
         self.device = torch.device(device)
+        self.extra_fn = extra_fn
+        self.transform = transform
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._index = start_index
         self._stop = threading.Event()
@@ -68,9 +72,13 @@ class DataPipeline:
         self._thread.start()
 
     def _make(self, index: int) -> dict:
+        host = self.gen.batch(index, self.batch, self.seq_len)
+        if self.extra_fn is not None:
+            host.update(self.extra_fn(index, self.batch))
+        if self.transform is not None:
+            host = self.transform(host)
         out = {}
-        for name, arr in self.gen.batch(index, self.batch,
-                                        self.seq_len).items():
+        for name, arr in host.items():
             t = torch.from_numpy(arr)
             if self.device.type == "cuda":
                 # from pinned host memory the copy runs asynchronously; the

@@ -1,12 +1,13 @@
 """Serving launcher: batched prefill + greedy decode with KV/state caches
 (the port of ``repro.launch.serve``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --batch 4 --prompt-len 512 --gen 32
 
-serves with ``use_pallas=True``, so on the card every prefill goes through
-the hand-written SSD kernel. ``--device cpu --reduced`` runs a tiny variant
-on the host (the kernel's plain version).
+serves with ``use_pallas=True``: on the card every prefill of a family with
+Mamba2 layers (zamba2) goes through the hand-written SSD kernel; the other
+families' serving attention is plain torch, as the reference's is jnp.
+``--device cpu --reduced`` runs a tiny variant on the host.
 """
 from __future__ import annotations
 
@@ -16,37 +17,61 @@ import time
 import torch
 
 
-def place_prefill_caches(model, caches: dict, max_len: int) -> dict:
-    """Full-length caches holding a prefill's caches: fresh zero caches of
-    ``max_len`` positions (``model.init_cache``) with the prompt's K/V
-    copied into their first S positions, in place. The caches are picked
-    by name: "kv" is the pair whose axis 2 is the sequence; "conv" and
-    "ssm" carry no sequence axis and are copied whole."""
-    k, v = caches["kv"]
-    full = model.init_cache(k.shape[1], max_len, device=k.device)
-    S = k.shape[2]
-    for dst, src in zip(full["kv"], caches["kv"]):
-        dst[:, :, :S].copy_(src)
-    for name in ("conv", "ssm"):
-        full[name].copy_(caches[name])
-    return full
+def _padded(pair, max_len: int) -> tuple:
+    """A (k, v) pair of prefill caches (axis 2 the sequence) in fresh zero
+    caches of ``max_len`` positions."""
+    out = []
+    for a in pair:
+        full = a.new_zeros(a.shape[:2] + (max_len,) + a.shape[3:])
+        full[:, :, :a.shape[2]].copy_(a)
+        out.append(full)
+    return tuple(out)
+
+
+def place_prefill_caches(model, caches, max_len: int):
+    """The caches decode runs on, from a prefill's caches: each family's
+    caches picked by name (the reference's ``generate`` pads every array
+    whose axis 2 equals the prompt length instead). The K/V of the prompt
+    go into fresh zero caches of ``max_len`` positions: the (k, v) pair of
+    dense, moe and vlm, zamba2's "kv", encdec's "self". The rest carry no
+    sequence axis to grow and are kept whole: zamba2's "conv" and "ssm",
+    xlstm's states, and encdec's "cross" (the encoder's K/V, as long as its
+    frames: decode attends to exactly those keys)."""
+    fam = model.cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        return _padded(caches, max_len)
+    if fam == "mamba_hybrid":
+        return {"conv": caches["conv"], "ssm": caches["ssm"],
+                "kv": _padded(caches["kv"], max_len)}
+    if fam == "encdec":
+        return {"cross": caches["cross"],
+                "self": _padded(caches["self"], max_len)}
+    if fam == "xlstm":
+        return caches
+    raise ValueError(f"unknown family {fam!r}")
 
 
 def generate(model, params, batch, gen_steps: int):
     """Greedy generation. Returns (tokens (B, gen_steps), per-token seconds).
 
-    Prefill runs once over the prompt; its caches go into caches allocated
-    at ``max_len = S + gen_steps``, with prefill's K/V written into them in
-    place (``place_prefill_caches``), and every decode step then writes its
-    K/V and states into them in place. A step's time is host clock around
-    the decode call, synchronised with the card. A step whose logits are not
-    all finite raises ``FloatingPointError``: no NaN becomes a token."""
+    Prefill runs once over the prompt (for the VLM its s_img patches, then
+    its S text tokens); ``place_prefill_caches`` puts its caches into
+    caches of ``max_len = s_img + S + gen_steps`` positions, and decode step
+    i writes at cache position s_img + S + i, in place. The VLM's decode
+    batch carries the prompt batch's ``mrope_delta`` (0 when it has none),
+    as the reference's ``generate`` passes it. A step's time is host clock
+    around the decode call, synchronised with the card. A step whose logits
+    are not all finite raises ``FloatingPointError``: no NaN becomes a
+    token."""
     prompt = batch["tokens"]
     B, S = prompt.shape
     dev = prompt.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    vlm = model.cfg.family == "vlm"
+    start = S + (batch["patch_embeds"].shape[1]
+                 if vlm and "patch_embeds" in batch else 0)
     logits, caches = model.prefill(params, batch)
-    caches = place_prefill_caches(model, caches, S + gen_steps)
+    caches = place_prefill_caches(model, caches, start + gen_steps)
 
     def pick(logits, step):
         if not bool(torch.isfinite(logits).all()):
@@ -57,10 +82,12 @@ def generate(model, params, batch, gen_steps: int):
     cur = pick(logits, "prefill")
     for i in range(gen_steps):
         toks.append(cur)
+        step = {"tokens": cur, "pos": start + i}
+        if vlm:
+            step["mrope_delta"] = batch.get("mrope_delta", 0)
         sync()
         t0 = time.perf_counter()
-        logits, caches = model.decode(params, {"tokens": cur, "pos": S + i},
-                                      caches)
+        logits, caches = model.decode(params, step, caches)
         sync()
         times.append(time.perf_counter() - t0)
         cur = pick(logits, i)
@@ -68,8 +95,9 @@ def generate(model, params, batch, gen_steps: int):
 
 
 def main(argv=None):
+    """Serve as the flags say; returns ``generate``'s (tokens, times)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-2.7b")
+    ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -96,6 +124,7 @@ def main(argv=None):
     med = float(np.median(times)) * 1e3
     print(f"generated {tuple(toks.shape)} tokens; median decode latency "
           f"{med:.2f} ms ({args.batch / np.median(times):.0f} tok/s)")
+    return toks, times
 
 
 if __name__ == "__main__":

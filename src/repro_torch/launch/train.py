@@ -1,16 +1,17 @@
 """Training launcher (the port of ``repro.launch.train``).
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
-      --steps 200 --batch 4 --seq-len 1024 --microbatches 2 --ckpt /tmp/ck
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+      --steps 200 --batch 8 --seq-len 1024 --microbatches 2 --ckpt ck/
 
-trains with ``use_pallas=True``, so on the card every attention and SSD
-scan goes through the hand-written kernels. ``--reduced --device cpu`` runs
-a tiny variant of the same family on the host (the kernels' plain
-versions). The flags are the reference's, plus ``--device``. The port runs
-on one device: ``--autotune`` (ROADMAP item 10), a ``--strategy`` other
-than ``single`` and a ``--model-axis`` above 1 (item 11.7) raise, and a
-family whose model is not ported (the default ``smollm-360m`` among them,
-item 11.4) raises in ``build_model``.
+trains with ``use_pallas=True``, so on the card every causal attention
+(and, for zamba2, every SSD scan) goes through the hand-written kernels.
+``--reduced --device cpu`` runs a tiny variant of the same family on the
+host (the kernels' plain versions). The flags and their defaults are the
+reference's (``--arch smollm-360m``), plus ``--device``; the data are the
+reference's synthetic token stream, with its stub patches (vlm) or frames
+(encdec) beside the tokens. The port runs on one device: ``--autotune`` (ROADMAP item 10), a
+``--strategy`` other than ``single`` and a ``--model-axis`` above 1 (item
+11.7) raise.
 """
 from __future__ import annotations
 

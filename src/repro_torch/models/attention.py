@@ -6,6 +6,8 @@
   * ``attend_prefill`` — causal self-attention; returns the K/V it computed
   * ``attend_decode``  — 1-token step against a fixed-size cache, written in
     place
+  * ``attend_cross``   — queries against precomputed encoder K/V
+    (``cross_kv``), no mask (the encoder-decoder family)
 
 The reference computes serving attention with jnp einsums outside any Pallas
 kernel (its flash kernel is reached only by ``attend_train``), so ``_sdpa``
@@ -13,8 +15,7 @@ is plain torch: products of operands in the activation dtype, accumulated in
 float32, and a float32 softmax, as the reference's ``_sdpa_block``. The
 products of two bf16 values are exact in float32, so the operands are
 widened to float32 and multiplied there; the port keeps float32 matmuls off
-TF32 (torch's default for matmuls). ``attend_cross`` and ``cross_kv`` come
-with the encoder-decoder slice.
+TF32 (torch's default for matmuls).
 """
 from __future__ import annotations
 
@@ -145,6 +146,25 @@ def attend_decode(cfg, p, x, cos, sin, cache, pos: int):
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
     o = _sdpa(q, k_cache, v_cache, causal=False, kv_valid_len=pos + 1)
     return _out(o, p["wo"]), (k_cache, v_cache)
+
+
+def attend_cross(cfg, p, x, kv_cache):
+    """Cross-attention of x (B,S,d) against precomputed encoder K/V
+    ``(k, v)`` each (B,S_enc,Hkv,Dh): every query sees every key."""
+    q = _proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    k, v = kv_cache
+    return _out(_sdpa(q, k, v, causal=False), p["wo"])
+
+
+def cross_kv(cfg, p, enc_out):
+    """The encoder output's K/V for ``attend_cross``."""
+    k, v = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(enc_out.dtype)
+        v = v + p["bv"].to(enc_out.dtype)
+    return k, v
 
 
 def kv_cache_shape(cfg, batch: int, max_len: int):

@@ -1,6 +1,6 @@
 """Shared model machinery: parameter specs with logical sharding axes,
-initialization, norms, rotary embeddings, the LM loss (the port of
-``repro.models.common``).
+initialization, norms, rotary embeddings (M-RoPE too), the LM loss (the
+port of ``repro.models.common``).
 
 Parameters are declared once as ``ParamSpec`` trees (nested dicts of shape
 + logical axes + init); ``init_params`` materializes them as a nested dict
@@ -14,6 +14,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.forest_torch import resolve_device
 
@@ -114,6 +115,15 @@ def unstack(tree) -> list:
     return [tree_map(lambda _, ts: ts[i], parts) for i in range(n)]
 
 
+def remat(on: bool, fn, *args):
+    """``fn(*args)``; with ``on``, its activations are recomputed in the
+    backward pass instead of kept (the reference's ``jax.checkpoint``).
+    The models draw no random numbers, so no RNG state is saved."""
+    if not on:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 # ------------------------------------------------------------------- numerics
 
 def rms_norm(x, w, eps: float = 1e-5):
@@ -121,6 +131,20 @@ def rms_norm(x, w, eps: float = 1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """In float32, cast to x's dtype, then scaled by w and shifted by b."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return out.to(x.dtype) * w.to(x.dtype) + b.to(x.dtype)
+
+
+def gelu(x):
+    """The tanh approximation (``jax.nn.gelu``'s default)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 def silu(x):
@@ -154,6 +178,31 @@ def apply_rope(x, cos, sin):
     c = cos[:, :, None, :].to(x.dtype)
     s = sin[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def mrope_cos_sin(positions3, head_dim: int, theta: float,
+                  sections: tuple[int, int, int]):
+    """M-RoPE (qwen2-vl): positions3 (B, S, 3) = (t, h, w) ids; the rotary
+    frequency bands are split into ``sections`` (sum = head_dim/2), each band
+    driven by its own position channel. Returns cos/sin (B, S, head_dim/2)."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"sections {sections} do not sum to {head_dim // 2}")
+    dev = positions3.device
+    freqs = rope_freqs(head_dim, theta, dev)                 # (D/2,)
+    ang_txy = positions3.float()[..., None, :] * freqs[None, None, :, None]
+    # ang_txy: (B, S, D/2, 3); pick the driving channel of each band
+    sel = torch.repeat_interleave(torch.arange(3, device=dev),
+                                  torch.tensor(sections, device=dev))
+    ang = torch.gather(ang_txy, -1, sel[None, None, :, None].expand(
+        *ang_txy.shape[:-1], 1))[..., 0]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def causal_mask(sq: int, skv: int, offset: int = 0, device=None):
+    """(Sq, Skv) bool: query i (at position i + offset) sees keys <= it."""
+    qi = torch.arange(sq, device=device)[:, None] + offset
+    ki = torch.arange(skv, device=device)[None, :]
+    return qi >= ki
 
 
 # ---------------------------------------------------------------------- loss

@@ -1,8 +1,7 @@
-"""Gated (SwiGLU) MLP (the port of ``repro.models.mlp``; the plain-GELU MLP
-comes with the families that use it)."""
+"""Gated (SwiGLU) and plain-GELU MLPs (the port of ``repro.models.mlp``)."""
 from __future__ import annotations
 
-from .common import EMBED, MLP, ParamSpec, silu
+from .common import EMBED, MLP, ParamSpec, gelu, silu
 
 
 def swiglu_specs(cfg, d_ff: int | None = None) -> dict:
@@ -19,3 +18,19 @@ def swiglu(p, x):
     dt = x.dtype
     h = silu(x @ p["wi_gate"].to(dt)) * (x @ p["wi_up"].to(dt))
     return h @ p["wo"].to(dt)
+
+
+def gelu_mlp_specs(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wi": ParamSpec((d, f), (EMBED, MLP)),
+        "bi": ParamSpec((f,), (MLP,), init="zeros"),
+        "wo": ParamSpec((f, d), (MLP, EMBED)),
+        "bo": ParamSpec((d,), (EMBED,), init="zeros"),
+    }
+
+
+def gelu_mlp(p, x):
+    dt = x.dtype
+    h = gelu(x @ p["wi"].to(dt) + p["bi"].to(dt))
+    return h @ p["wo"].to(dt) + p["bo"].to(dt)

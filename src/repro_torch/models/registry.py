@@ -6,11 +6,15 @@
     prefill(params, batch)              -> (logits, caches)
     decode(params, batch, caches)       -> (logits, caches)   caches in place
     make_batch(shape, seed, device)     -> batch of the reference's numbers
-    cache_spec(batch, max_len)          -> ({name: (shape, dtype)}, axes)
+    cache_spec(batch, max_len)          -> (tree of (shape, dtype), axes)
     init_cache(batch, max_len, device)  -> zero caches
 
-Only the ``mamba_hybrid`` family (zamba2) is ported; ``build_model`` names
-the ROADMAP item that brings each other family.
+Every family of the reference is ported: dense, moe and vlm
+(``models/lm.py``), mamba_hybrid (``models/zamba.py``), xlstm
+(``models/xlstm_lm.py``) and encdec (``models/encdec.py``). A cache tree is
+the family's own: a (k, v) pair (dense, moe, vlm), a dict of tensors and
+pairs (zamba2: "conv", "ssm", "kv"; encdec: "cross", "self"), or a dict of
+tuples (xlstm: "m" (C, n, m), "s" (c, n, h, m)).
 """
 from __future__ import annotations
 
@@ -24,16 +28,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.forest_torch import resolve_device
 from .common import init_params, leaves
-from . import zamba
-
-#: Where each family not yet ported is queued (ROADMAP.md, queue 1).
-_NOT_PORTED = {
-    "dense": "ROADMAP item 11.4 (models/lm.py)",
-    "moe": "ROADMAP item 11.4 (models/moe.py, models/lm.py)",
-    "vlm": "ROADMAP item 11.4 (models/lm.py, M-RoPE)",
-    "xlstm": "ROADMAP item 11.4 (models/xlstm.py, models/xlstm_lm.py)",
-    "encdec": "ROADMAP item 11.4 (models/encdec.py)",
-}
+from . import encdec, lm, xlstm_lm, zamba
 
 
 @dataclass
@@ -53,48 +48,85 @@ class ModelBundle:
         return int(sum(np.prod(s.shape) for s in leaves(self.specs)))
 
     # ------------------------------------------------ inputs
+    def _seq_split(self, shape: ShapeConfig) -> tuple[int, int]:
+        """(aux_len, text_len): the image patches and text tokens of a VLM
+        sequence, the encoder frames and decoder tokens of an enc-dec one."""
+        if self.cfg.family == "vlm":
+            s_img = int(shape.seq_len * self.cfg.img_token_frac)
+            return s_img, shape.seq_len - s_img
+        if self.cfg.family == "encdec":
+            return shape.seq_len, shape.seq_len     # enc frames + dec tokens
+        return 0, shape.seq_len
+
     def input_specs(self, shape: ShapeConfig) -> dict:
-        """{name: (shape, dtype name)} of a batch, as the reference's
-        ``input_specs`` for a text-only family."""
+        """{name: (shape, dtype name)} of a batch, in the reference's
+        ``input_specs`` order."""
         B = shape.global_batch
+        fam = self.cfg.family
+        aux_len, text_len = self._seq_split(shape)
         if shape.kind == "decode":
-            return {"tokens": ((B, 1), "int32"), "pos": ((), "int32")}
-        d = {"tokens": ((B, shape.seq_len), "int32")}
+            d = {"tokens": ((B, 1), "int32"), "pos": ((), "int32")}
+            if fam == "vlm":
+                d["mrope_delta"] = ((), "int32")
+            return d
+        d = {"tokens": ((B, text_len), "int32")}
         if shape.kind == "train":
-            d["labels"] = ((B, shape.seq_len), "int32")
+            d["labels"] = ((B, text_len), "int32")
+        if fam == "vlm":
+            d["patch_embeds"] = ((B, aux_len, self.cfg.patch_dim),
+                                 self.cfg.dtype)
+        if fam == "encdec":
+            d["frames"] = ((B, aux_len, self.cfg.d_model), self.cfg.dtype)
         return d
 
     def make_batch(self, shape: ShapeConfig, seed: int = 0,
                    device: str | torch.device = "cuda") -> dict:
         """Concrete random batch: the same numpy draws, in the same order,
-        as the reference's ``make_batch``, so the tokens are equal."""
+        as the reference's ``make_batch``, so the tokens and the float32
+        inputs are equal (a float input is 0.1 x a normal draw, rounded to
+        float32 and then to its dtype; an int32 one, ``mrope_delta``,
+        truncates its draw toward 0 as the reference's cast does)."""
         device = resolve_device(device)
         rng = np.random.default_rng(seed)
         out = {}
-        for name, (shp, _) in self.input_specs(shape).items():
-            if name == "pos":
-                out[name] = torch.tensor(0, dtype=torch.int32, device=device)
-            else:                                   # tokens, labels
+        for name, (shp, dt) in self.input_specs(shape).items():
+            if name in ("tokens", "labels"):
                 out[name] = torch.as_tensor(
                     rng.integers(0, self.cfg.vocab, size=shp),
                     dtype=torch.int32, device=device)
+            elif name == "pos":
+                out[name] = torch.tensor(0, dtype=torch.int32, device=device)
+            else:
+                a = np.asarray(rng.normal(size=shp) * 0.1)
+                a = a.astype(np.int32 if dt == "int32" else np.float32)
+                out[name] = torch.as_tensor(a, device=device).to(
+                    getattr(torch, dt))
         return out
 
     def init_cache(self, batch: int, max_len: int,
-                   device: str | torch.device = "cuda") -> dict:
+                   device: str | torch.device = "cuda"):
+        """Zero caches of the family's cache tree (``cache_spec``)."""
         shapes, _ = self.cache_spec(batch, max_len)
         device = resolve_device(device)
 
         def zeros(spec):
-            if not isinstance(spec[1], torch.dtype):
-                return tuple(zeros(s) for s in spec)        # the (k, v) pair
-            shp, dt = spec
-            return torch.zeros(shp, dtype=dt, device=device)
-        return {name: zeros(spec) for name, spec in shapes.items()}
+            if isinstance(spec, dict):
+                return {k: zeros(v) for k, v in spec.items()}
+            if len(spec) == 2 and isinstance(spec[1], torch.dtype):
+                return torch.zeros(spec[0], dtype=spec[1], device=device)
+            return tuple(zeros(s) for s in spec)
+        return zeros(shapes)
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:
     fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        return ModelBundle(
+            cfg=cfg, specs=lm.lm_specs(cfg),
+            loss=partial(lm.lm_loss, cfg),
+            prefill=partial(lm.lm_prefill, cfg),
+            decode=partial(lm.lm_decode, cfg),
+            cache_spec=partial(lm.lm_cache_spec, cfg))
     if fam == "mamba_hybrid":
         return ModelBundle(
             cfg=cfg, specs=zamba.zamba_specs(cfg),
@@ -102,7 +134,21 @@ def build_model(cfg: ModelConfig) -> ModelBundle:
             prefill=partial(zamba.zamba_prefill, cfg),
             decode=partial(zamba.zamba_decode, cfg),
             cache_spec=partial(zamba.zamba_cache_spec, cfg))
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(f"family {fam!r} is not ported yet: "
-                                  f"{_NOT_PORTED[fam]}")
+    if fam == "xlstm":
+        return ModelBundle(
+            cfg=cfg, specs=xlstm_lm.xlstm_specs(cfg),
+            loss=partial(xlstm_lm.xlstm_loss, cfg),
+            prefill=partial(xlstm_lm.xlstm_prefill, cfg),
+            decode=partial(xlstm_lm.xlstm_decode, cfg),
+            cache_spec=partial(xlstm_lm.xlstm_cache_spec, cfg))
+    if fam == "encdec":
+        # the cross cache's spec is max_len long, as the reference's
+        # registry has it; a prefill's cross cache is as long as its frames
+        return ModelBundle(
+            cfg=cfg, specs=encdec.encdec_specs(cfg),
+            loss=partial(encdec.encdec_loss, cfg),
+            prefill=partial(encdec.encdec_prefill, cfg),
+            decode=partial(encdec.encdec_decode, cfg),
+            cache_spec=lambda batch, max_len: encdec.encdec_cache_spec(
+                cfg, batch, max_len, enc_len=max_len))
     raise ValueError(f"unknown family {fam!r}")

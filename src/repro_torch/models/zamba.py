@@ -13,13 +13,12 @@ every Mamba layer's scan through kernel B3 under ``cfg.use_pallas``.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .attention import (attend_decode, attend_prefill, attend_train,
                         attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, HEADS, KV_HEADS, LORA, VOCAB,
-                     ParamSpec, cross_entropy_loss, rms_norm, rope_cos_sin,
-                     stack_specs, unstack)
+                     ParamSpec, cross_entropy_loss, remat, rms_norm,
+                     rope_cos_sin, stack_specs, unstack)
 from .mamba2 import mamba_cache_shapes, mamba_mix, mamba_specs
 from .mlp import swiglu, swiglu_specs
 
@@ -92,13 +91,6 @@ def _shared_block(cfg, shared, lora, x, cos, sin, mode, kv_cache=None,
     return x + swiglu(mlp_p, h), new_cache
 
 
-def _remat(fn, *args):
-    """``fn(*args)`` with its activations recomputed in the backward pass
-    instead of kept (the reference's ``jax.checkpoint``). The model draws
-    no random numbers, so no RNG state is saved."""
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-
-
 def _train_layer(cfg, lp, x):
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
     out, _ = mamba_mix(cfg, lp["mix"], h)
@@ -109,8 +101,7 @@ def _train_group(cfg, shared, layers, lora, x, cos, sin):
     """One group in training: its Mamba layers, each checkpointed under
     ``cfg.remat``, then the shared block."""
     for lp in layers:
-        x = (_remat(_train_layer, cfg, lp, x) if cfg.remat
-             else _train_layer(cfg, lp, x))
+        x = remat(cfg.remat, _train_layer, cfg, lp, x)
     x, _ = _shared_block(cfg, shared, lora, x, cos, sin, "train")
     return x
 
@@ -135,7 +126,7 @@ def _forward(cfg, params, x, mode, caches=None, pos=None):
     if mode == "train":
         for layers, lora in zip(groups, loras):
             args = (cfg, params["shared"], layers, lora, x, cos, sin)
-            x = _remat(_train_group, *args) if cfg.remat else _train_group(*args)
+            x = remat(cfg.remat, _train_group, *args)
         return x, None
 
     convs, ssms, ks, vs = [], [], [], []

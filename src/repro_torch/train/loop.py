@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..checkpoint.manager import CheckpointManager
@@ -59,8 +60,10 @@ def run_training(model, loop_cfg: TrainLoopConfig,
     step_fn = make_train_step(model, opt_cfg,
                               n_microbatches=loop_cfg.microbatches)
     gen = SyntheticLM(model.cfg.vocab, seed=loop_cfg.seed)
+    extra_fn, transform = _extra_inputs_fn(model.cfg, loop_cfg.seq_len)
     pipe = DataPipeline(gen, loop_cfg.batch, loop_cfg.seq_len, device=device,
-                        start_index=start_step)
+                        start_index=start_step, extra_fn=extra_fn,
+                        transform=transform)
     monitor = monitor or StepMonitor()
     losses = []
     try:
@@ -84,3 +87,34 @@ def run_training(model, loop_cfg: TrainLoopConfig,
             ckpt.wait()
     return {"state": state, "losses": losses, "monitor": monitor,
             "resumed_from": resumed_from}
+
+
+def _extra_inputs_fn(cfg, seq_len: int):
+    """(extra_fn, transform) for the multi-modal stub inputs, the
+    reference's: a VLM's patch embeddings (its image share of ``seq_len``;
+    the text trimmed to the rest) and an enc-dec's frames, float32 normal
+    draws x 0.05 from their own seeded streams."""
+    if cfg.family == "vlm":
+        aux_len = int(seq_len * cfg.img_token_frac)
+        text_len = seq_len - aux_len
+
+        def patches(index, local_batch):
+            rng = np.random.default_rng((7, index))
+            return {"patch_embeds": (rng.normal(
+                size=(local_batch, aux_len, cfg.patch_dim)) * 0.05
+            ).astype(np.float32)}
+
+        def trim(out):
+            out["tokens"] = out["tokens"][:, :text_len]
+            if "labels" in out:
+                out["labels"] = out["labels"][:, :text_len]
+            return out
+        return patches, trim
+    if cfg.family == "encdec":
+        def frames(index, local_batch):
+            rng = np.random.default_rng((11, index))
+            return {"frames": (rng.normal(
+                size=(local_batch, seq_len, cfg.d_model)) * 0.05
+            ).astype(np.float32)}
+        return frames, None
+    return None, None

@@ -489,10 +489,22 @@ def test_launcher_refuses_what_is_not_ported(flags, item):
                     *flags])
 
 
-def test_launcher_default_arch_waits_for_its_family():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11.4"):
-        train_main(["--reduced", "--device", "cpu", "--steps", "1"])
+def test_launcher_trains_its_default_arch():
+    """``train_main`` with its defaults but the size: smollm-360m (the
+    reference's default) trains 2 steps to a finite loss."""
+    out = train_main(["--reduced", "--device", "cpu", "--steps", "2"])
     assert ARCHS["smollm-360m"].family == "dense"
+    assert out["state"]["params"]["embed"].shape == (128, 64)
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-medium"])
+def test_launcher_feeds_the_stub_inputs(arch):
+    """The VLM trains on the reference's stub patches (the text trimmed to
+    its share of the sequence) and the enc-dec on its stub frames."""
+    out = train_main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--steps", "2", "--batch", "2", "--seq-len", "16"])
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
 
 
 def test_launcher_trains_on_the_host():

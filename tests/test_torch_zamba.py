@@ -251,11 +251,25 @@ def test_generate_refuses_non_finite_logits(params):
 
 # --------------------------------------------------------- families, rules
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "olmoe-1b-7b", "xlstm-125m",
-                                  "whisper-medium", "qwen2-vl-7b"])
-def test_other_families_are_queued(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(reduced(ARCHS[arch]))
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_arch_builds_and_runs(arch):
+    """Every config of ARCHS has a model: on the host at its reduced size,
+    a finite loss, prefill logits of the vocab's width and one decode step
+    on the placed caches."""
+    pm = build_model(reduced(ARCHS[arch]))
+    p = pm.init(0, "cpu")
+    loss, _ = pm.loss(p, pm.make_batch(ShapeConfig("t", 8, 2, "train"),
+                                       device="cpu"))
+    assert loss.dim() == 0 and bool(torch.isfinite(loss))
+    batch = pm.make_batch(ShapeConfig("s", 8, 2, "prefill"), device="cpu")
+    logits, caches = pm.prefill(p, batch)
+    assert tuple(logits.shape) == (2, 1, pm.cfg.vocab)
+    start = 8                 # cache positions (the VLM's: patches + text)
+    caches = place_prefill_caches(pm, caches, start + 1)
+    step, _ = pm.decode(p, {"tokens": batch["tokens"][:, -1:], "pos": start},
+                        caches)
+    assert tuple(step.shape) == (2, 1, pm.cfg.vocab)
+    assert bool(torch.isfinite(step).all())
 
 
 def test_entry_points_default_to_the_card():
@@ -305,6 +319,35 @@ def test_scan_drift_sets_faults_apart(capsys):
 
 def test_serve_main_runs_on_the_host(capsys):
     from repro_torch.launch.serve import main
-    main(["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "5",
-          "--gen", "3"])
+    main(["--arch", "zamba2-2.7b", "--reduced", "--device", "cpu", "--batch",
+          "2", "--prompt-len", "5", "--gen", "3"])
     assert "generated (2, 3) tokens" in capsys.readouterr().out
+
+
+def test_serve_default_arch_matches_reference(monkeypatch, capsys):
+    """``python -m repro_torch.launch.serve --reduced --device cpu``: its
+    default arch is the reference's (smollm-360m), and with the reference's
+    parameters (``init`` of key 0) its tokens are the reference's
+    ``generate``'s on the same batch, 4 prompts of 32 tokens, 32 steps."""
+    from repro_torch.launch.serve import main
+    from repro_torch.models.registry import ModelBundle
+    rm = r_build(r_reduced(R_ARCHS["smollm-360m"]))
+    ref = jax.tree.map(np.asarray, rm.init(jax.random.key(0)))
+    want, _ = r_generate(rm, ref, rm.make_batch(RShape("serve", 32, 4,
+                                                       "prefill")), 32)
+    monkeypatch.setattr(ModelBundle, "init", lambda self, seed=0, device="cuda":
+                        lm_params_from_arrays(self.specs, ref, device=device))
+    toks, times = main(["--reduced", "--device", "cpu"])
+    assert "generated (4, 32) tokens" in capsys.readouterr().out
+    assert len(times) == 32
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(want))
+
+
+def test_serve_module_runs_with_its_defaults():
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--reduced", "--device", "cpu"], capture_output=True,
+                         text=True, env=env, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert "generated (4, 32) tokens" in out.stdout
