@@ -13,9 +13,12 @@ Drives the port's serving and training paths on the card at full width:
   shared attention block every 6 layers; random weights from a seeded
   ``torch.Generator``) serving 4 prompts of 512 tokens and 32 greedy decode
   steps through ``repro_torch.launch.serve.generate``;
-* the same model trained through ``repro_torch.launch.train``: 4 AdamW
-  steps of 4 x 1024 tokens in 2 microbatches, bf16 activations over f32
-  parameters and moments, activation checkpointing as configured;
+* the same model trained through ``repro_torch.launch.train`` with its
+  defaults (the reference's: strategy 2d, model axis 1, so a 1 x 1
+  ("data", "model") DeviceMesh of one NCCL rank, every parameter a
+  DTensor, the kernels on local shards): 4 AdamW steps of 4 x 1024 tokens
+  in 2 microbatches, bf16 activations over f32 parameters and moments,
+  activation checkpointing as configured;
 * smollm-360m, the launchers' default, served (4 x 512 prompts, 32 tokens)
   and trained (4 steps of 8 x 1024 tokens) at full width and depth, and
   the MoE, VLM, xLSTM and enc-dec families at full width with depth cut.
@@ -119,11 +122,13 @@ Phases, one JSON line each:
                the model's (B, S, H, D) strides, masked keys and rows that
                see none, f32 and bf16; bitwise repeatable; the
                autograd.Function's gradients against the plain version's
-  lm_train     zamba2-2.7b trained through ``launch.train.main``: both
-               kernels' launches counted against the count the code implies
-               (36 attention and 324 SSD launches per step), the loss finite
-               at every step; one more step with every kernel call held in
-               place to its plain version
+  lm_train     zamba2-2.7b trained through ``launch.train.main`` on the 1 x 1
+               NCCL mesh (the process group NCCL, the mesh (1, 1), every
+               parameter a DTensor on the card, asserted): both kernels'
+               launches counted against the count the code implies (36
+               attention and 324 SSD launches per step), the loss finite
+               at every step; one more step on the mesh with every kernel
+               call held in place to its plain version
   train_timing step time and tokens/s; one traced step (the card's busy
                share, the largest kernels); the flash kernel at the training
                shape beside its plain version, its bound and SDPA (timed as a
@@ -141,13 +146,25 @@ Phases, one JSON line each:
   lm_dense_timing  its prefill ms (median of 3), decode ms per token and
                tokens/s; one prefill and one decode step traced
   lm_dense_train  smollm-360m trained through ``launch.train.main`` with the
-               launcher's defaults (4 steps of 8 x 1024 tokens, 2
-               microbatches, groups of 8 layers checkpointed in their
-               group's checkpoint): 184 B2 launches per step asserted (the
-               count ``train_launches_per_step`` derives), losses finite;
+               launcher's defaults (the 1 x 1 NCCL mesh, checked as in
+               lm_train; 4 steps of 8 x 1024 tokens, 2 microbatches, groups
+               of 8 layers checkpointed in their group's checkpoint): 184
+               B2 launches per step asserted (the count
+               ``train_launches_per_step`` derives), losses finite;
                one more step with every B2 call held in place; step ms,
                tokens/s, peak GB, a traced step; B2 at (4, 15, 5, 1024,
                1024, 64) beside its plain version, its bound and SDPA
+  mesh_parity  the same 4 smollm-360m steps through ``run_training(mesh=None)``
+               (plain tensors): losses held to the mesh run's within 2^-7,
+               step by step (bitwise reported); step ms, tokens/s and peak GB
+               of both paths side by side (DTensor's host cost); one f32 step
+               (1 x 1024) on each path, held to DENSE_F32_REL if a
+               non-causal fault through the mesh lands 5x above it
+  dp_compressed  ``train.grad.make_dp_grad_fn`` on NCCL at world size 1 over
+               smollm-360m's loss (1 x 1024): the int8 + error-feedback
+               gradients' relative error against the uncompressed ones
+               (reported); the reference's convergence case (150 compressed
+               steps, last loss under 1 % of the first), held
   lm_dense_train_f32  one whole f32 step of smollm-360m (1 x 1024) through
                B2 beside the plain path: B2 and its plain version held
                within DENSE_F32_REL on loss and gradient norm, a
@@ -165,7 +182,8 @@ launches on each path: ``launches`` in serve, then ``frontend_launches``,
 ``cluster_launches`` and ``supervise_launches``; the flash-attention
 entry's ``launches`` are zamba2's training run's, ``smollm_launches``
 smollm-360m's and ``families_launches`` the depth-cut families' step's,
-with smollm's shape and times beside zamba2's), the card's name and power
+with smollm's shape and times beside zamba2's; ``launch_path`` says that
+the training launches come from the mesh path), the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}`` last. Any
 failed check raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result. The kernels build into
@@ -264,6 +282,18 @@ DENSE_F32_BATCH, DENSE_F32_SEQ = 1, 1024
 # apart; the non-causal fault 1.74e-3 / 1.36e-2, 3,300x and 195x above
 # these limits
 DENSE_F32_REL = {"loss": 5.3e-7, "grad_norm": 7.0e-5}
+# the mesh path (a 1 x 1 NCCL mesh, strategy 2d) beside the one-device
+# path: the same 4 bf16 steps of smollm-360m, losses held step by step to
+# one bf16 ulp (2^-7 relative); on a mesh of one both run the same local
+# kernels in the same order, so the bits are expected equal (reported)
+MESH_LOSS_REL = 2 ** -7
+# where the training launches of B2 and B3 come from (the kernels line)
+MESH_PATH = ("launch.train.main's defaults: the mesh path, a 1 x 1 "
+             "(data, model) DeviceMesh of one NCCL rank, strategy 2d, "
+             "kernels on local shards under local_map")
+# the explicit data-parallel gradient (train/grad.py) over smollm-360m's
+# loss: one sequence of 1024 tokens
+DP_BATCH, DP_SEQ = 1, 1024
 # the four other families at full width with depth cut (a check, not a
 # cell): 2 layers (xlstm: one group of 4, whisper: 2 encoder + 2 decoder
 # layers); one prefill of 2 x 256 tokens and 8 greedy steps through
@@ -985,14 +1015,40 @@ def flash_timing(dev, shape) -> dict:
                           layout="(B, S, H, D) transposed")}
 
 
+def mesh_path_check(out: dict, dev) -> dict:
+    """That ``launch.train.main`` trained on the mesh path: an NCCL process
+    group, the (1, 1) ("data", "model") mesh, every parameter a DTensor on
+    the card."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.common import leaves
+
+    params = leaves(out["state"]["params"])
+    got = {"backend": out["backend"], "mesh": out["mesh"],
+           "world": dist.get_world_size(),
+           "dtensor_params": sum(isinstance(p, DTensor) for p in params),
+           "params_on_card": sum(p.device.type == dev.type for p in params),
+           "leaves": len(params)}
+    if (got["backend"] != "nccl" or got["mesh"] != (("data", "model"), (1, 1))
+            or got["dtensor_params"] != len(params)
+            or got["params_on_card"] != len(params)):
+        raise AssertionError(f"the launcher did not train on the 1 x 1 NCCL "
+                             f"mesh with DTensor parameters on the card: "
+                             f"{got}")
+    return got
+
+
 def launcher_training(dev, arch: str, steps: int, batch: int,
                       seq: int) -> dict:
     """``arch`` trained at full width on the card through the launcher's
-    entry point (``launch.train.main``, the config's microbatches): kernel
-    launches counted against ``train_launches_per_step``, the loss finite
-    at every step; then one more step with every kernel call held in place
-    to its plain version (TRAIN_CALL_REL). Returns what the phases report
-    and the state, step and batch for timing."""
+    entry point (``launch.train.main`` with its defaults: strategy 2d,
+    model axis 1, so the mesh path, on the world of one NCCL rank that
+    ``main()`` below starts; the config's microbatches): the mesh path checked
+    (``mesh_path_check``), kernel launches counted against
+    ``train_launches_per_step``, the loss finite at every step; then one
+    more step on the same mesh with every kernel call held in place to its
+    plain version (TRAIN_CALL_REL). Returns what the phases report and the
+    state, step and batch for timing."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1000,8 +1056,12 @@ def launcher_training(dev, arch: str, steps: int, batch: int,
     from repro_torch.kernels.attention import ops as fops
     from repro_torch.kernels.mamba import ops as sops
     from repro_torch.kernels.watch import watching
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.train import main as train_main
+    from repro_torch.models.common import leaves
     from repro_torch.models.registry import build_model
+    from repro_torch.sharding.context import activation_sharding
+    from repro_torch.sharding.rules import distribute, tree_shardings
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.step import make_train_step
 
@@ -1018,6 +1078,7 @@ def launcher_training(dev, arch: str, steps: int, batch: int,
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {"flash_attention": fops.launches, "ssd_scan": sops.launches}
+    on_mesh = mesh_path_check(out, dev)
     want = {k: v * steps for k, v in per_step.items()}
     if launches != want:
         raise AssertionError(f"{launches} kernel launches in {steps} {arch} "
@@ -1028,16 +1089,25 @@ def launcher_training(dev, arch: str, steps: int, batch: int,
     step_s = [t for _, t in out["monitor"].history]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # one more step, every kernel call held in place to its plain version
+    # one more step on the same mesh, every kernel call held in place to
+    # its plain version
     state = out["state"]
     del out
     model = build_model(cfg)
-    step = make_train_step(model, OptConfig(lr=3e-3, total_steps=steps,
-                                            warmup_steps=5),
-                           n_microbatches=cfg.microbatches)
+    train_step = make_train_step(model, OptConfig(lr=3e-3, total_steps=steps,
+                                                  warmup_steps=5),
+                                 n_microbatches=cfg.microbatches)
+    mesh = leaves(state["params"])[0].device_mesh
+    shape = ShapeConfig("check", seq, batch, "train")
+    placed = tree_shardings(model.input_axes(shape), mesh, "2d",
+                            model.abstract_inputs(shape))
     gen = SyntheticLM(cfg.vocab, seed=0)
-    data = {k: torch.as_tensor(v, device=dev) for k, v in
-            gen.batch(steps, batch, seq).items()}
+    data = {k: distribute(torch.as_tensor(v, device=dev), mesh, placed[k])
+            for k, v in gen.batch(steps, batch, seq).items()}
+
+    def step(state, data):
+        with activation_sharding(mesh, "2d"):
+            return train_step(state, data)
     records = {}
     with watching(inplace_check(records)):
         state, metrics = step(state, data)
@@ -1055,7 +1125,7 @@ def launcher_training(dev, arch: str, steps: int, batch: int,
                              f"{float(metrics['loss'])}")
     return {"cfg": cfg, "params": model.n_params(), "run_s": run_s,
             "losses": losses, "step_s": step_s, "peak_memory_gb": peak_gb,
-            "launches": launches, "per_step": per_step,
+            "launches": launches, "per_step": per_step, "mesh": on_mesh,
             "checked_step_loss": float(metrics["loss"]),
             "checked_calls": calls, "worst_call_rel": worst,
             "state": state, "step": step, "batch": data}
@@ -1070,7 +1140,7 @@ def lm_train_phase(dev) -> dict:
          layers=cfg.n_layers, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
          microbatches=cfg.microbatches, steps=TRAIN_STEPS,
          **{k: run[k] for k in ("run_s", "losses", "step_s",
-                                "peak_memory_gb", "launches")},
+                                "peak_memory_gb", "launches", "mesh")},
          launches_per_step=run["per_step"],
          **{k: run[k] for k in ("checked_step_loss", "checked_calls",
                                 "worst_call_rel")},
@@ -1281,7 +1351,7 @@ def lm_dense_train_phase(dev, smi: str) -> dict:
          seq=DENSE_TRAIN_SEQ, microbatches=cfg.microbatches,
          remat_groups=cfg.remat_groups, steps=DENSE_TRAIN_STEPS,
          **{k: run[k] for k in ("run_s", "losses", "step_s",
-                                "peak_memory_gb", "launches")},
+                                "peak_memory_gb", "launches", "mesh")},
          launches_per_step=run["per_step"], step_ms_median=step_ms,
          tokens_per_s=DENSE_TRAIN_BATCH * DENSE_TRAIN_SEQ / step_ms * 1e3,
          **{k: run[k] for k in ("checked_step_loss", "checked_calls",
@@ -1291,7 +1361,213 @@ def lm_dense_train_phase(dev, smi: str) -> dict:
          step_trace=trace, flash=flash,
          seconds=time.perf_counter() - t_phase, card=smi)
     return {"launches": run["launches"], "per_step": run["per_step"],
-            "flash": flash}
+            "flash": flash, "losses": run["losses"], "step_s": run["step_s"],
+            "peak_memory_gb": run["peak_memory_gb"], "run_s": run["run_s"]}
+
+
+def mesh_parity_phase(dev, dense: dict, smi: str) -> dict:
+    """smollm-360m at full width and depth: the launcher's run on the 1 x 1
+    mesh (``lm_dense_train``) beside the same 4 steps through
+    ``run_training(mesh=None)`` (plain tensors): losses held step by step
+    within MESH_LOSS_REL, step ms, tokens/s and peak GB of both side by
+    side (what DTensor's dispatch costs a host-bound step); then one f32
+    step (1 x 1024) through B2 on each path, loss and gradient norm held to
+    DENSE_F32_REL if a non-causal attention fault through the mesh path
+    lands 5x above it (else reported)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.watch import watching
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import leaves
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.context import activation_sharding
+    from repro_torch.sharding.rules import (distribute, distribute_tree,
+                                            tree_shardings)
+    from repro_torch.train.loop import TrainLoopConfig, run_training
+    from repro_torch.train.optimizer import OptConfig, global_norm
+    from repro_torch.train.step import loss_and_grads
+
+    t_phase = time.perf_counter()
+    cfg = replace(get_config(DENSE_ARCH), use_pallas=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the launcher's settings (launch/train.py) with no mesh
+    plain = run_training(
+        build_model(cfg),
+        TrainLoopConfig(steps=DENSE_TRAIN_STEPS, batch=DENSE_TRAIN_BATCH,
+                        seq_len=DENSE_TRAIN_SEQ, seed=0,
+                        microbatches=cfg.microbatches),
+        opt_cfg=OptConfig(lr=3e-3, total_steps=DENSE_TRAIN_STEPS,
+                          warmup_steps=max(DENSE_TRAIN_STEPS // 20, 5)),
+        device=dev, mesh=None)
+    torch.cuda.synchronize()
+    plain_run_s = time.perf_counter() - t0
+    plain_peak = torch.cuda.max_memory_allocated() / 1e9
+    if any(type(p).__name__ == "DTensor"
+           for p in leaves(plain["state"]["params"])):
+        raise AssertionError("run_training(mesh=None) made DTensors")
+    del plain["state"]
+    torch.cuda.empty_cache()
+    apart = [abs(a - b) / abs(b) for a, b in zip(dense["losses"],
+                                                 plain["losses"])]
+    if len(apart) != DENSE_TRAIN_STEPS or not max(apart) <= MESH_LOSS_REL:
+        raise AssertionError(f"mesh losses {dense['losses']} against the "
+                             f"one-device path's {plain['losses']}: {apart} "
+                             f"apart, limit {MESH_LOSS_REL}")
+    plain_step_s = [t for _, t in plain["monitor"].history]
+    tokens = DENSE_TRAIN_BATCH * DENSE_TRAIN_SEQ
+    mesh_ms = float(np.median(dense["step_s"][1:])) * 1e3
+    plain_ms = float(np.median(plain_step_s[1:])) * 1e3
+
+    # one f32 step on each path, the same parameters and tokens
+    cfg32 = replace(cfg, dtype="float32")
+    model = build_model(cfg32)
+    params = model.init(0, dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        cfg.vocab, seed=0).batch(0, DENSE_F32_BATCH, DENSE_F32_SEQ).items()}
+    mesh = make_host_mesh(1, dev)
+    shape = ShapeConfig("f32", DENSE_F32_SEQ, DENSE_F32_BATCH, "train")
+    mparams = distribute_tree(params, mesh, tree_shardings(
+        model.param_axes(), mesh, "2d", params))
+    placed = tree_shardings(model.input_axes(shape), mesh, "2d",
+                            model.abstract_inputs(shape))
+    mbatch = {k: distribute(v, mesh, placed[k]) for k, v in batch.items()}
+
+    def step(on_mesh: bool, causal: bool | None = None):
+        def swap(name, inputs, output):
+            if causal is None or name != "flash_attention":
+                return None
+            return attention_ref(inputs["q"], inputs["k"], inputs["v"],
+                                 causal=causal, sm_scale=inputs["sm_scale"])
+        with watching(swap):
+            if on_mesh:
+                with activation_sharding(mesh, "2d"):
+                    loss, grads = loss_and_grads(model, mparams, mbatch)
+            else:
+                loss, grads = loss_and_grads(model, params, batch)
+        return float(loss), float(global_norm(dict(enumerate(grads))))
+
+    one = step(False)
+    readings = {"mesh": step(True),
+                "fault_mesh_attention_not_causal": step(True, causal=False)}
+    f32_apart = {k: {"loss": abs(v[0] - one[0]) / abs(one[0]),
+                     "grad_norm": abs(v[1] - one[1]) / abs(one[1])}
+                 for k, v in readings.items()}
+    fault = f32_apart["fault_mesh_attention_not_causal"]
+    held = all(fault[k] > 5 * lim for k, lim in DENSE_F32_REL.items())
+    del mparams, params, mbatch, batch
+    torch.cuda.empty_cache()
+    emit("mesh_parity", arch=DENSE_ARCH, global_batch=DENSE_TRAIN_BATCH,
+         seq=DENSE_TRAIN_SEQ, steps=DENSE_TRAIN_STEPS,
+         mesh={"shape": (1, 1), "backend": "nccl", "strategy": "2d"},
+         losses={"mesh": dense["losses"], "one_device": plain["losses"]},
+         losses_apart=apart, losses_bitwise=dense["losses"] == plain[
+             "losses"], loss_limit=MESH_LOSS_REL,
+         step_ms_median={"mesh": mesh_ms, "one_device": plain_ms},
+         step_ms={"mesh": [t * 1e3 for t in dense["step_s"]],
+                  "one_device": [t * 1e3 for t in plain_step_s]},
+         tokens_per_s={"mesh": tokens / mesh_ms * 1e3,
+                       "one_device": tokens / plain_ms * 1e3},
+         mesh_step_cost=mesh_ms / plain_ms,
+         peak_memory_gb={"mesh": dense["peak_memory_gb"],
+                         "one_device": plain_peak},
+         run_s={"mesh": dense["run_s"], "one_device": plain_run_s},
+         f32={"batch": DENSE_F32_BATCH, "seq": DENSE_F32_SEQ,
+              "one_device": {"loss": one[0], "grad_norm": one[1]},
+              "readings": {k: {"loss": v[0], "grad_norm": v[1]}
+                           for k, v in readings.items()},
+              "apart_from_one_device": f32_apart, "limits": DENSE_F32_REL,
+              "held": held},
+         seconds=time.perf_counter() - t_phase, card=smi)
+    if not all(np.isfinite(v).all() for v in (one, *readings.values())):
+        raise AssertionError(f"non-finite f32 step: {readings}, one {one}")
+    if held and any(f32_apart["mesh"][k] > lim
+                    for k, lim in DENSE_F32_REL.items()):
+        raise AssertionError(f"f32 step on the mesh {f32_apart['mesh']} off "
+                             f"the one-device path's, limits {DENSE_F32_REL}")
+    return {"mesh_ms": mesh_ms, "one_device_ms": plain_ms}
+
+
+def dp_compressed_phase(dev, smi: str) -> dict:
+    """``train.grad.make_dp_grad_fn`` on NCCL at world size 1 (a ("data",)
+    mesh of one): over smollm-360m's full-width loss at 1 x 1024 through
+    B2, the int8 + error-feedback gradients beside the uncompressed ones
+    (the relative error, reported); then the reference's convergence case
+    (tests/test_distributed.py: a linear regression, 150 compressed steps,
+    the last loss under 1 % of the first), held."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.common import leaves
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.grad import init_error_state, make_dp_grad_fn
+
+    t_phase = time.perf_counter()
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    cfg = replace(get_config(DENSE_ARCH), use_pallas=True)
+    model = build_model(cfg)
+    params = model.init(0, dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        cfg.vocab, seed=0).batch(0, DP_BATCH, DP_SEQ).items()}
+    err = init_error_state(params)
+    t0 = time.perf_counter()
+    loss_u, g_u, _ = make_dp_grad_fn(model.loss, mesh)(params, batch, err)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, g_c, err = make_dp_grad_fn(model.loss, mesh, compress=True)(
+        params, batch, err)
+    torch.cuda.synchronize()
+    compressed_s = time.perf_counter() - t0
+    diff = sum(float((a.double() - b.double()).square().sum())
+               for a, b in zip(leaves(g_c), leaves(g_u)))
+    norm = sum(float(b.double().square().sum()) for b in leaves(g_u))
+    worst_leaf = max(float((a - b).abs().max() / b.abs().max())
+                     for a, b in zip(leaves(g_c), leaves(g_u)))
+    residual = sum(float(e.double().square().sum()) for e in leaves(err))
+    del params, g_u, g_c, err, batch
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    w_true = rng.normal(size=(8, 1)).astype(np.float32)
+    xn = rng.normal(size=(64, 8)).astype(np.float32)
+    X = torch.tensor(xn, device=dev)
+    y = torch.tensor(xn @ w_true, device=dev)
+    W = torch.zeros(8, 1, device=dev)
+
+    def reg_loss(p, b):
+        return ((b[0] @ p - b[1]) ** 2).mean(), {}
+
+    fn = make_dp_grad_fn(reg_loss, mesh, compress=True, error_feedback=True)
+    e = init_error_state(W)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(150):
+        loss, g, e = fn(W, (X, y), e)
+        W = W - 0.1 * g
+        losses.append(float(loss))
+    conv_s = time.perf_counter() - t0
+    out = {"rel_error": (diff / norm) ** 0.5, "worst_leaf_rel": worst_leaf,
+           "first": losses[0], "last": losses[-1]}
+    emit("dp_compressed", arch=DENSE_ARCH, batch=DP_BATCH, seq=DP_SEQ,
+         mesh={"shape": (1,), "names": ("data",), "backend": "nccl"},
+         loss={"uncompressed": float(loss_u), "compressed": float(loss_c)},
+         compressed_grad_rel_error=out["rel_error"],
+         worst_leaf_rel=worst_leaf, residual_norm=residual ** 0.5,
+         grad_s={"uncompressed": plain_s, "compressed": compressed_s},
+         convergence={"steps": 150, "first": losses[0], "last": losses[-1],
+                      "limit": "last < 0.01 x first", "seconds": conv_s},
+         seconds=time.perf_counter() - t_phase, card=smi)
+    if not np.isfinite(out["rel_error"]) or not losses[-1] < 0.01 * losses[0]:
+        raise AssertionError(f"compressed DP: {out}")
+    return out
 
 
 def lm_dense_train_f32_phase(dev) -> dict:
@@ -2627,6 +2903,13 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # ------------------------------------------- the training path
+        # the launcher trains dense and mamba_hybrid on a mesh: a world of
+        # one NCCL rank, started here so that it outlives each launcher
+        # call and the phases after it can check and reuse it
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import init_world
+        if not init_world(dev) or dist.get_backend() != "nccl":
+            raise AssertionError("no world of one NCCL rank")
         flash = flash_kernel_phase(dev)
         trained = lm_train_phase(dev)
         train_launches, per_step = trained["launches"], trained["per_step"]
@@ -2641,6 +2924,9 @@ def main() -> int:
         del dense_served
         torch.cuda.empty_cache()
         dense = lm_dense_train_phase(dev, smi)
+        mesh_parity_phase(dev, dense, smi)
+        dp_compressed_phase(dev, smi)
+        dist.destroy_process_group()
         lm_dense_train_f32_phase(dev)
         families = lm_families_phase(dev, smi)
         t0 = time.perf_counter()
@@ -2679,6 +2965,7 @@ def main() -> int:
         "passes_device_ms": lm["passes_device_ms"],
         "bound_with_states_ms": lm["bound_with_states_ms"],
         "train_launches": train_launches["ssd_scan"],
+        "train_launch_path": MESH_PATH,
         "train_launches_per_step": per_step["ssd_scan"],
         "train_ms": ssd_t["ms"], "train_device_ms": ssd_t["device_ms"],
         "train_plain_ms": ssd_t["plain_ms"],
@@ -2690,6 +2977,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/attention/kernel.py:22",
         "launches": train_launches["flash_attention"],
         "launches_per_step": per_step["flash_attention"],
+        "launch_path": MESH_PATH,
         "max_abs_err": flash["max_abs_err"],
         "max_abs_err_bf16": flash["max_abs_err_bf16"],
         "ms": flash_t["ms"], "device_ms": flash_t["device_ms"],
@@ -2699,6 +2987,7 @@ def main() -> int:
         "shape": flash_t["shape"], "cuda_kernels": [FLASH_KERNELS[0]],
         "smollm_launches": dense["launches"]["flash_attention"],
         "smollm_launches_per_step": dense["per_step"]["flash_attention"],
+        "smollm_launch_path": MESH_PATH,
         "smollm_shape": dense["flash"]["shape"],
         "smollm_ms": dense["flash"]["ms"],
         "smollm_device_ms": dense["flash"]["device_ms"],

@@ -11,9 +11,14 @@
   * RETENTION: the newest ``keep`` checkpoints stay, plus every
     ``keep_every`` milestone;
   * SELF-DESCRIBING: a manifest records the step, each leaf's shape and
-    dtype and the caller's metadata; ``latest_step`` scans the directory,
-    so a restart needs no other state. ``restore`` puts the tensors on the
-    device asked for.
+    dtype, the state's device and the caller's metadata; ``latest_step``
+    scans the directory, so a restart needs no other state. ``restore``
+    puts the tensors back on that device, or on the device asked for;
+  * MESH-AGNOSTIC: ``save`` gathers a DTensor leaf whole (``full_tensor``,
+    a collective every rank of its mesh calls) and the mesh's first rank
+    writes; ``restore`` can distribute every leaf onto a mesh by a tree of
+    placements, the reference's ``shardings=``, so a restart lands on a
+    new plan.
 
 Leaves are torch tensors or numpy arrays, saved as numpy (bfloat16, which
 numpy lacks, as its 16-bit pattern) and restored as tensors.
@@ -29,6 +34,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from ..sharding.rules import distribute_tree
 
 
 def _flatten(tree, prefix=""):
@@ -71,8 +80,20 @@ def _unflatten(flat: dict):
     return build(root)
 
 
+def _writer(flat: dict) -> bool:
+    """Whether this rank writes: the first rank of the state's mesh (mesh
+    coordinate all zeros), or rank 0 for a state of plain tensors."""
+    for v in flat.values():
+        if isinstance(v, DTensor):
+            coord = v.device_mesh.get_coordinate()
+            return coord is not None and not any(coord)
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """(a numpy copy of ``leaf``, its dtype name)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         name = str(t.dtype).split(".")[-1]
@@ -84,7 +105,8 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
 
 
 def _from_host(a: np.ndarray, name: str, device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    # ascontiguousarray alone would make a 0-d array 1-d
+    t = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
     if name == "bfloat16":
         t = t.view(torch.bfloat16)
     return t.to(device)
@@ -103,14 +125,22 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, state, metadata: dict | None = None) -> None:
+        """Every rank of the state's mesh calls ``save`` (DTensor leaves
+        are gathered collectively); its first rank writes."""
         self.wait()
         # snapshot to host SYNCHRONOUSLY: the caller may update the tensors
         # in place as soon as this returns
         host, dtypes = {}, {}
-        for k, v in _flatten(state).items():
+        flat = _flatten(state)
+        for k, v in flat.items():
             host[k], dtypes[k] = _to_host(v)
+        if not _writer(flat):
+            return
+        devices = {str(v.device.type) for v in flat.values()
+                   if isinstance(v, torch.Tensor)}
         meta = {"step": int(step), "time": time.time(),
                 "metadata": metadata or {},
+                "device": devices.pop() if len(devices) == 1 else "cpu",
                 "leaves": {k: [list(v.shape), dtypes[k]]
                            for k, v in host.items()}}
         if self.async_save:
@@ -143,7 +173,9 @@ class CheckpointManager:
         self._gc()
 
     def wait(self) -> None:
-        """Join the pending write; raise what it raised."""
+        """Join the pending write; raise what it raised. Only one rank
+        writes: another rank that reads the directory next waits for it
+        (a barrier) itself."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
@@ -172,9 +204,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None = None,
-                device: str | torch.device = "cpu"):
-        """(step, state) with every leaf a tensor on ``device``."""
+    def restore(self, step: int | None = None, placements=None, mesh=None,
+                device: str | torch.device | None = None):
+        """(step, state) with every leaf a tensor on ``device`` (by default
+        the device the state was saved from). With ``placements`` (a tree of
+        placements matching the state, ``sharding.tree_shardings``'s) every
+        leaf becomes a DTensor on ``mesh``, each rank keeping its shards."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -184,6 +219,11 @@ class CheckpointManager:
             meta = json.load(f)
         with np.load(path / "arrays.npz") as z:
             host = {k.replace("|", "/"): z[k] for k in z.files}
+        device = meta.get("device", "cpu") if device is None else device
         state = _unflatten({k: _from_host(a, meta["leaves"][k][1], device)
                             for k, a in host.items()})
+        if placements is not None:
+            if mesh is None:
+                raise ValueError("placements need the mesh they refer to")
+            state = distribute_tree(state, mesh, placements)
         return int(meta["step"]), state

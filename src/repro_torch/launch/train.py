@@ -4,22 +4,36 @@
       --steps 200 --batch 8 --seq-len 1024 --microbatches 2 --ckpt ck/
 
 trains with ``use_pallas=True``, so on the card every causal attention
-(and, for zamba2, every SSD scan) goes through the hand-written kernels.
-``--reduced --device cpu`` runs a tiny variant of the same family on the
-host (the kernels' plain versions). The flags and their defaults are the
-reference's (``--arch smollm-360m``), plus ``--device``; the data are the
-reference's synthetic token stream, with its stub patches (vlm) or frames
-(encdec) beside the tokens. The port runs on one device: ``--autotune`` (ROADMAP item 10), a
-``--strategy`` other than ``single`` and a ``--model-axis`` above 1 (item
-11.7) raise.
+(and, for zamba2, every SSD scan) goes through the hand-written kernels,
+on each rank's shards. ``--reduced --device cpu`` runs a tiny variant of
+the same family on the host (the kernels' plain versions). The flags and
+their defaults are the reference's (``--arch smollm-360m --strategy 2d
+--model-axis 1``), plus ``--device``; the data are the reference's
+synthetic token stream, with its stub patches (vlm) or frames (encdec)
+beside the tokens.
+
+The dense and mamba_hybrid families always train on a ("data", "model")
+DeviceMesh over the world (``make_host_mesh``; a world of one NCCL rank on
+one card, of one gloo rank on the host), under ``--strategy``. The moe,
+vlm, xlstm and encdec families train on plain tensors on a world of one
+and raise on more ranks (ROADMAP item 11.7, the remaining families).
+``--autotune`` raises (ROADMAP item 10). Multi-rank:
+
+  torchrun --nproc-per-node N -m repro_torch.launch.train --model-axis M
 """
 from __future__ import annotations
 
 import argparse
 
 
+# the families whose models place their activations on a mesh
+MESH_FAMILIES = ("dense", "mamba_hybrid")
+
+
 def main(argv=None) -> dict:
-    """Train as the flags say; returns ``run_training``'s result."""
+    """Train as the flags say; returns ``run_training``'s result, with
+    "mesh" ((names, shape), or None off a mesh) and "backend" (the process
+    group's)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true",
@@ -30,7 +44,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--strategy", default="single")
+    ap.add_argument("--strategy", default="2d")
     ap.add_argument("--autotune", action="store_true")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--model-axis", type=int, default=1)
@@ -41,33 +55,57 @@ def main(argv=None) -> dict:
     if args.autotune:
         raise NotImplementedError("--autotune needs the cost model of "
                                   "ROADMAP item 10, not ported yet")
-    if args.strategy != "single" or args.model_axis != 1:
-        raise NotImplementedError(
-            f"the port trains on one device; strategy {args.strategy!r} with "
-            f"model axis {args.model_axis} waits for ROADMAP item 11.7")
 
     from dataclasses import replace
 
+    import torch.distributed as dist
+
     from ..configs import get_config, reduced as make_reduced
     from ..models.registry import build_model
+    from ..sharding.rules import STRATEGIES
     from ..train.loop import TrainLoopConfig, run_training
     from ..train.optimizer import OptConfig
+    from .mesh import init_world, make_host_mesh
 
+    if args.strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {args.strategy!r}; one of "
+                         f"{sorted(STRATEGIES)}")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
     model = build_model(replace(cfg, use_pallas=True))
-    out = run_training(
-        model,
-        TrainLoopConfig(steps=args.steps, batch=args.batch,
-                        seq_len=args.seq_len, checkpoint_dir=args.ckpt,
-                        checkpoint_every=args.ckpt_every, seed=args.seed,
-                        microbatches=args.microbatches),
-        opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps,
-                          warmup_steps=max(args.steps // 20, 5)),
-        device=args.device)
-    print(f"final loss {out['losses'][-1]:.4f} over {len(out['losses'])} steps"
-          f"; stragglers flagged: {len(out['monitor'].flagged)}")
+    started = init_world(args.device)
+    try:
+        mesh = make_host_mesh(args.model_axis, args.device)
+        if cfg.family not in MESH_FAMILIES:
+            if mesh.size() > 1:
+                raise NotImplementedError(
+                    f"the {cfg.family} family trains on one rank; "
+                    f"{mesh.size()} ranks wait for ROADMAP item 11.7, the "
+                    f"remaining families")
+            mesh = None
+        first = dist.get_rank() == 0          # the rank that reports
+        out = run_training(
+            model,
+            TrainLoopConfig(steps=args.steps, batch=args.batch,
+                            seq_len=args.seq_len, checkpoint_dir=args.ckpt,
+                            checkpoint_every=args.ckpt_every, seed=args.seed,
+                            strategy=args.strategy,
+                            microbatches=args.microbatches),
+            opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps,
+                              warmup_steps=max(args.steps // 20, 5)),
+            device=args.device, mesh=mesh,
+            log_fn=print if first else (lambda *_: None))
+        out["mesh"] = None if mesh is None else (
+            tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+        out["backend"] = dist.get_backend()
+    finally:
+        if started:
+            dist.destroy_process_group()
+    if first:
+        print(f"final loss {out['losses'][-1]:.4f} over "
+              f"{len(out['losses'])} steps; stragglers flagged: "
+              f"{len(out['monitor'].flagged)}")
     return out
 
 

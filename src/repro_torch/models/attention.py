@@ -20,10 +20,14 @@ TF32 (torch's default for matmuls).
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.attention import flash_attention
+from ..sharding.context import constrain, current_ctx, on_mesh
 from .common import EMBED, HEAD_DIM, HEADS, KV_HEADS, ParamSpec, apply_rope
 
 
@@ -55,6 +59,19 @@ def _qkv(cfg, p, x):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    q = constrain(q, ("act_batch", "act_seq", "act_heads", None))
+    kv_axes = ("act_batch", "act_seq", "act_kv_heads", None)
+    ctx = current_ctx()
+    if ctx is not None:
+        # the reference's context-parallel fallback: when neither the q-
+        # nor the kv-head count divides the model axis, shard the KV
+        # sequence instead of head_dim
+        msize = dict(zip(ctx[0].mesh_dim_names, ctx[0].shape)).get("model", 1)
+        if (msize > 1 and cfg.n_kv_heads % msize and cfg.n_heads % msize
+                and k.shape[1] % msize == 0):
+            kv_axes = ("act_batch", "act_kv_seq", "act_kv_heads", None)
+    k = constrain(k, kv_axes)
+    v = constrain(v, kv_axes)
     return q, k, v
 
 
@@ -108,20 +125,56 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_valid_len=None):
     return o.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
-def attend_train(cfg, p, x, cos, sin):
-    """Causal self-attention over the whole sequence, no cache. With
-    ``cfg.use_pallas`` the attention is kernel B2 (``flash_attention``, the
-    Hopper kernel on a CUDA tensor), fed transposed views of q, k and v, so
-    no (B, H, S, D) copy is made; otherwise the plain ``_sdpa``."""
-    q, k, v = _qkv(cfg, p, x)
+def _attend_core(cfg, q, k, v, cos, sin):
+    """Rotary embedding, then causal attention: kernel B2
+    (``flash_attention``, the Hopper kernel on a CUDA tensor) under
+    ``cfg.use_pallas``, fed transposed views of q, k and v, so no
+    (B, H, S, D) copy is made; otherwise the plain ``_sdpa``."""
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cfg.use_pallas:
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True).transpose(1, 2)
-    else:
-        o = _sdpa(q, k, v, causal=True)
-    return _out(o, p["wo"])
+        return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True).transpose(1, 2)
+    return _sdpa(q, k, v, causal=True)
+
+
+def _core_on_shards(core, q, k, v, cos, sin):
+    """(``core`` as a ``local_map`` over the mesh, its DTensor arguments).
+    The kernels launch on ``data_ptr``, so no DTensor may reach them: each
+    rank runs ``core`` on its shards, the reference's ``shard_map``. The
+    shards keep q's batch sharding, and its head sharding where the KV
+    heads shard on the same mesh dimension (a local q head then meets its
+    own KV head); heads (or ``head_dim``, the fallback) sharded any other
+    way are gathered first: attention cannot run on a ``head_dim`` shard.
+    The rotary tables follow the batch sharding."""
+    mesh = q.device_mesh
+    qkv_pl = []
+    for a, b in zip(q.placements, k.placements):
+        if a == Shard(0) or (a == Shard(2) and b == Shard(2)):
+            qkv_pl.append(a)
+        else:
+            qkv_pl.append(Replicate())
+    qkv_pl = tuple(qkv_pl)
+    rope_pl = tuple(p if p == Shard(0) else Replicate() for p in qkv_pl)
+    q, k, v = (t.redistribute(mesh, qkv_pl) for t in (q, k, v))
+    cos, sin = (on_mesh(t, mesh).redistribute(mesh, rope_pl)
+                for t in (cos, sin))
+    fn = local_map(core, out_placements=list(qkv_pl),
+                   in_placements=(list(qkv_pl),) * 3 + (list(rope_pl),) * 2,
+                   device_mesh=mesh)
+    return fn, (q, k, v, cos, sin)
+
+
+def attend_train(cfg, p, x, cos, sin):
+    """Causal self-attention over the whole sequence, no cache
+    (``_attend_core``; on a mesh, on each rank's shards)."""
+    q, k, v = _qkv(cfg, p, x)
+    core = partial(_attend_core, cfg)
+    args = (q, k, v, cos, sin)
+    if isinstance(q, DTensor):
+        core, args = _core_on_shards(core, *args)
+    out = _out(core(*args), p["wo"])
+    return constrain(out, ("act_batch", "act_seq", "act_embed"))
 
 
 def attend_prefill(cfg, p, x, cos, sin):

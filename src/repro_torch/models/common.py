@@ -17,6 +17,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.forest_torch import resolve_device
+from ..sharding.context import constrain, in_scope
 
 # ---------------------------------------------------------------- param specs
 
@@ -118,10 +119,13 @@ def unstack(tree) -> list:
 def remat(on: bool, fn, *args):
     """``fn(*args)``; with ``on``, its activations are recomputed in the
     backward pass instead of kept (the reference's ``jax.checkpoint``).
-    The models draw no random numbers, so no RNG state is saved."""
+    The models draw no random numbers, so no RNG state is saved. The
+    recomputation runs in the activation-sharding scope of the forward
+    (``sharding.context.in_scope``)."""
     if not on:
         return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return checkpoint(in_scope(fn), *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 # ------------------------------------------------------------------- numerics
@@ -211,7 +215,9 @@ def cross_entropy_loss(logits, labels, z_loss: float = 1e-4):
     """Mean next-token cross entropy in float32, plus ``z_loss`` times the
     mean squared log-normalizer (it keeps large vocab heads stable).
     logits (B, S, V), labels (B, S)."""
-    lf = logits.float()
+    # on a mesh the vocab shards are gathered first: DTensor's masked
+    # gather over a vocab-sharded dim does not survive the indexing below
+    lf = constrain(logits.float(), ("act_batch", "act_seq", None))
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     ce = (lse - gold).mean()

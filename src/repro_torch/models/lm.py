@@ -5,8 +5,9 @@ One block = pre-RMSNorm GQA attention + pre-RMSNorm SwiGLU MLP (or MoE).
 Layers are stored stacked (a leading ``layers`` axis) as in the reference;
 the reference's scan over them is a loop over their ``unstack`` slices
 here, each slice cast to the activation dtype once per layer
-(``_cast_block``). The reference's sharding constraints and optimization
-barriers only steer XLA and have no counterpart.
+(``_cast_block``). The reference's sharding constraints are ``constrain``
+calls at the same sites (no-ops off a mesh); its optimization barriers only
+steer XLA and have no counterpart.
 
 Training (``lm_loss``) runs each attention through kernel B2 under
 ``cfg.use_pallas``; serving keeps the reference's plain attention. Under
@@ -30,11 +31,13 @@ import math
 
 import torch
 
+from ..sharding.context import constrain, constrain_tree, current_ctx
 from .attention import (attend_decode, attend_prefill, attend_train,
                         attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, KV_HEADS, VOCAB, ParamSpec,
-                     cross_entropy_loss, gelu, mrope_cos_sin, remat,
-                     rms_norm, rope_cos_sin, stack_specs, tree_map, unstack)
+                     cross_entropy_loss, gelu, logical_axes, mrope_cos_sin,
+                     remat, rms_norm, rope_cos_sin, stack_specs, tree_map,
+                     unstack)
 from .mlp import swiglu, swiglu_specs
 from .moe import moe_apply, moe_specs
 
@@ -72,8 +75,12 @@ def lm_specs(cfg) -> dict:
 
 def _cast_block(cfg, layer):
     """A layer's f32 master weights in the activation dtype, cast once per
-    layer (the reference's ``cast_block``)."""
+    layer (the reference's ``cast_block``). On a mesh the slices are first
+    pinned to their parameter placements (``constrain_tree``), so the cast
+    runs on the shards."""
     dt = getattr(torch, cfg.dtype)
+    if current_ctx() is not None:
+        layer = constrain_tree(layer, logical_axes(block_specs(cfg)))
     return tree_map(lambda _, a: a.to(dt) if a.is_floating_point() else a,
                     layer)
 
@@ -101,7 +108,7 @@ def _block_apply(cfg, p, x, cos, sin, mode, cache=None, pos=None):
 
 def _train_layer(cfg, lp, x, cos, sin):
     x, _, aux = _block_apply(cfg, _cast_block(cfg, lp), x, cos, sin, "train")
-    return x, aux
+    return constrain(x, ("act_batch", "act_seq", "act_embed")), aux
 
 
 def _train_layers(cfg, layers, x, cos, sin):
@@ -182,7 +189,7 @@ def _embed_inputs(cfg, params, batch_dict):
         img = gelu(pe @ pp["w1"].to(dt)) @ pp["w2"].to(dt)
         x = torch.cat([img, x], dim=1)
         s_img = pe.shape[1]
-    return x, s_img
+    return constrain(x, ("act_batch", "act_seq", "act_embed")), s_img
 
 
 def _positions(cfg, x, s_img: int, s_text: int):
@@ -194,7 +201,8 @@ def _positions(cfg, x, s_img: int, s_text: int):
 def _logits(cfg, params, x):
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(x.dtype)
+    return constrain(x @ head.to(x.dtype),
+                     ("act_batch", "act_seq", "act_vocab"))
 
 
 def lm_loss(cfg, params, batch_dict):

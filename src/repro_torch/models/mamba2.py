@@ -15,10 +15,15 @@ plain torch (the reference has no kernel there).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.mamba import ops
 from ..kernels.mamba.ref import ssd_chunked
+from ..sharding.context import constrain
 from .common import CONV, EMBED, HEADS, INNER, ParamSpec, rms_norm, silu, softplus
 
 
@@ -73,6 +78,7 @@ def mamba_mix(cfg, p, u, ssm_state=None, conv_state=None, *, decode=False):
     P = cfg.ssm_head_dim
     dtp = u.dtype
     proj = u @ p["in_proj"].to(dtp)                             # (B,S,2di+2N+H)
+    proj = constrain(proj, ("act_batch", "act_seq", "act_inner"))
     z, xbc, dt_raw = _split_proj(cfg, proj)
     xbc, new_conv = _causal_conv(p, xbc, conv_state if decode else None)
     x = xbc[..., :di]
@@ -96,17 +102,50 @@ def mamba_mix(cfg, p, u, ssm_state=None, conv_state=None, *, decode=False):
         y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h)
         y = y[:, None].to(dtp)                                  # (B,1,H,P)
         new_ssm = h
-    elif cfg.use_pallas:
-        y, new_ssm = ops.ssd_scan(xin, alog, Bm, Cm, h0=ssm_state)
     else:
-        y, new_ssm = ssd_chunked(xin, alog, Bm, Cm, h0=ssm_state,
-                                 chunk=min(128, S))
+        scan = _ssd if ssm_state is None else partial(_ssd, h0=ssm_state)
+        args = (cfg, xin, alog, Bm, Cm)
+        if isinstance(xin, DTensor):
+            scan, args = _ssd_on_shards(scan, *args)
+        y, new_ssm = scan(*args)
 
     y = y + xh * p["d_skip"].to(dtp)[None, None, :, None]
     y = y.reshape(Bsz, S, di)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps) * silu(z)
     out = y @ p["out_proj"].to(dtp)
+    out = constrain(out, ("act_batch", "act_seq", "act_embed"))
     return out, (new_conv, new_ssm)
+
+
+def _ssd(cfg, xin, alog, Bm, Cm, h0=None):
+    """The SSD scan: kernel B3 (``ops.ssd_scan``) under ``cfg.use_pallas``,
+    else the plain chunked SSD."""
+    if cfg.use_pallas:
+        return ops.ssd_scan(xin, alog, Bm, Cm, h0=h0)
+    return ssd_chunked(xin, alog, Bm, Cm, h0=h0, chunk=min(128, xin.shape[1]))
+
+
+def _ssd_on_shards(scan, cfg, xin, alog, Bm, Cm):
+    """(``scan`` as a ``local_map`` over the mesh, its DTensor arguments):
+    each rank scans its shards, no DTensor reaching the kernel. The shards
+    keep xin's batch sharding and its head sharding (the recurrence is per
+    head); anything else is gathered first. B and C are shared by the
+    heads, so they are gathered over a head-sharded mesh dimension, and
+    their gradients there are partial sums, one per rank's heads."""
+    mesh = xin.device_mesh
+    x_pl = [a if a in (Shard(0), Shard(2)) else Replicate()
+            for a in xin.placements]
+    bc_pl = [a if a == Shard(0) else Replicate() for a in x_pl]
+    bc_grad = [Partial() if a == Shard(2) else b for a, b in zip(x_pl, bc_pl)]
+    h_pl = [Shard(1) if a == Shard(2) else a for a in x_pl]
+    xin = xin.redistribute(mesh, x_pl)
+    alog = alog.redistribute(mesh, x_pl)
+    Bm, Cm = (t.redistribute(mesh, bc_pl) for t in (Bm, Cm))
+    fn = local_map(partial(scan, cfg), out_placements=(x_pl, h_pl),
+                   in_placements=(x_pl, x_pl, bc_pl, bc_pl),
+                   in_grad_placements=(x_pl, x_pl, bc_grad, bc_grad),
+                   device_mesh=mesh)
+    return fn, (xin, alog, Bm, Cm)
 
 
 def mamba_cache_shapes(cfg, batch: int):

@@ -8,6 +8,10 @@
     make_batch(shape, seed, device)     -> batch of the reference's numbers
     cache_spec(batch, max_len)          -> (tree of (shape, dtype), axes)
     init_cache(batch, max_len, device)  -> zero caches
+    param_axes() / input_axes(shape) / cache_axes(batch, max_len)
+                                        -> logical axes for the sharding rules
+    abstract(dtype) / abstract_inputs(shape) / abstract_cache(batch, max_len)
+                                        -> the same trees on the meta device
 
 Every family of the reference is ported: dense, moe and vlm
 (``models/lm.py``), mamba_hybrid (``models/zamba.py``), xlstm
@@ -27,7 +31,7 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.forest_torch import resolve_device
-from .common import init_params, leaves
+from .common import BATCH, init_params, leaves, logical_axes, tree_map
 from . import encdec, lm, xlstm_lm, zamba
 
 
@@ -43,6 +47,20 @@ class ModelBundle:
     # ------------------------------------------------ params
     def init(self, seed: int = 0, device: str | torch.device = "cuda") -> dict:
         return init_params(self.specs, seed, device)
+
+    def abstract(self, dtype: str | None = None) -> dict:
+        """The params as tensors on the ``meta`` device (shapes and dtypes,
+        no storage); ``dtype`` overrides the float leaves (bf16 serving
+        weights carry no f32 masters)."""
+        def meta(_, s):
+            dt = getattr(torch, s.dtype)
+            if dtype is not None and dt.is_floating_point:
+                dt = getattr(torch, dtype)
+            return torch.empty(s.shape, dtype=dt, device="meta")
+        return tree_map(meta, self.specs)
+
+    def param_axes(self) -> dict:
+        return logical_axes(self.specs)
 
     def n_params(self) -> int:
         return int(sum(np.prod(s.shape) for s in leaves(self.specs)))
@@ -78,6 +96,18 @@ class ModelBundle:
         if fam == "encdec":
             d["frames"] = ((B, aux_len, self.cfg.d_model), self.cfg.dtype)
         return d
+
+    def input_axes(self, shape: ShapeConfig) -> dict:
+        """Logical axes of a batch: ``batch`` on the leading dim, the rest
+        replicated; () for a scalar."""
+        return {name: () if not shp else (BATCH,) + (None,) * (len(shp) - 1)
+                for name, (shp, _) in self.input_specs(shape).items()}
+
+    def abstract_inputs(self, shape: ShapeConfig) -> dict:
+        """``input_specs`` as tensors on the ``meta`` device."""
+        return {name: torch.empty(shp, dtype=getattr(torch, dt),
+                                  device="meta")
+                for name, (shp, dt) in self.input_specs(shape).items()}
 
     def make_batch(self, shape: ShapeConfig, seed: int = 0,
                    device: str | torch.device = "cuda") -> dict:
@@ -116,6 +146,13 @@ class ModelBundle:
                 return torch.zeros(spec[0], dtype=spec[1], device=device)
             return tuple(zeros(s) for s in spec)
         return zeros(shapes)
+
+    def abstract_cache(self, batch: int, max_len: int):
+        """The cache tree on the ``meta`` device."""
+        return self.init_cache(batch, max_len, device="meta")
+
+    def cache_axes(self, batch: int, max_len: int):
+        return self.cache_spec(batch, max_len)[1]
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.context import constrain
 from .attention import (attend_decode, attend_prefill, attend_train,
                         attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, HEADS, KV_HEADS, LORA, VOCAB,
@@ -161,7 +162,8 @@ def _forward(cfg, params, x, mode, caches=None, pos=None):
 
 
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    return constrain(x, ("act_batch", "act_seq", "act_embed"))
 
 
 def zamba_loss(cfg, params, batch_dict):

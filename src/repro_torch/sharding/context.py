@@ -1,0 +1,117 @@
+"""Activation-sharding context (the port of ``repro.sharding.context``).
+
+Model code annotates ACTIVATIONS with logical axes through
+``constrain(x, axes)``. Inside an ``activation_sharding(mesh, strategy)``
+scope a DTensor is redistributed to the placements the rules give those
+axes, as the reference's ``with_sharding_constraint`` pins GSPMD's
+propagation; outside a scope, and on a plain tensor, it is a no-op, so
+one-device runs and every test without a mesh pay nothing.
+
+Activation axis names are distinct from parameter axes: a parameter's
+``embed`` dim shards over `data` (FSDP storage), while an activation's
+feature dim is replicated.
+
+Tensors the model makes itself (rotary tables, masks, position ids) are
+plain tensors; where they meet a DTensor, ``on_mesh`` makes them
+replicated DTensors on its mesh (every rank made the same values).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate
+
+from .rules import STRATEGIES, placements, spec_for_axes
+
+_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "activation_sharding", default=None)
+
+# activation-axis additions merged into every named strategy
+_ACT_AXES = {
+    "act_batch": ("pod", "data"),
+    "act_seq": (),
+    "act_embed": (),
+    "act_heads": ("model",),
+    "act_kv_heads": ("model",),
+    "act_kv_seq": ("model",),   # context-parallel attention (kv seq axis)
+    "act_mlp": ("model",),
+    "act_vocab": ("model",),
+    "act_expert": ("model",),
+    "act_expert_cap": ("model",),
+    "act_inner": ("model",),
+}
+for _name, _s in STRATEGIES.items():
+    for k, v in _ACT_AXES.items():
+        _s.setdefault(k, v)
+# sequence-parallel strategy shards activation seq over model
+STRATEGIES["sp"]["act_seq"] = ("model",)
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh, strategy: str | dict):
+    strat = STRATEGIES[strategy] if isinstance(strategy, str) else strategy
+    token = _CTX.set((mesh, strat))
+    try:
+        yield
+    finally:
+        _CTX.reset(token)
+
+
+def current_ctx():
+    """(mesh, strategy dict) of the active scope, or None."""
+    return _CTX.get()
+
+
+def constrain(x, axes: tuple):
+    """Redistribute the DTensor ``x`` to the placements of the logical
+    ``axes`` (activation axis names; None = replicated dim). A no-op
+    outside a scope and on a plain tensor."""
+    ctx = _CTX.get()
+    if ctx is None or not isinstance(x, DTensor):
+        return x
+    mesh, strat = ctx
+    want = placements(spec_for_axes(tuple(axes), strat, mesh,
+                                    tuple(x.shape)), mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def constrain_tree(tree, axes_tree):
+    """``constrain`` over a nested dict (one layer's weight slices) with
+    the same structure of axes."""
+    if _CTX.get() is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: constrain_tree(v, axes_tree[k]) for k, v in tree.items()}
+    return constrain(tree, axes_tree)
+
+
+def in_scope(fn):
+    """``fn`` bound to the active scope (itself outside one): it runs in
+    that scope wherever it is called from. Activation checkpointing needs
+    it: the backward pass recomputes a checkpointed forward on the autograd
+    engine's thread (a CUDA device's worker), where the caller's scope is
+    not set."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return fn
+
+    def scoped(*args, **kwargs):
+        token = _CTX.set(ctx)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _CTX.reset(token)
+    return scoped
+
+
+def on_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t``, made by every rank alike, as a replicated DTensor on
+    ``mesh``; ``t`` itself if it already is one."""
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)

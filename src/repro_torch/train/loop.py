@@ -1,13 +1,18 @@
-"""The training loop on one device (the port of ``repro.train.loop``): the
-data pipeline, the train step, checkpoints and the step monitor, with
-resume from the newest checkpoint.
+"""The training loop (the port of ``repro.train.loop``): the data
+pipeline, the train step, checkpoints and the step monitor, with resume
+from the newest checkpoint.
 
-The reference places the state and batches on a mesh under a sharding
-strategy; the port runs on one device, and meshes and strategies come with
-ROADMAP item 11.7.
+With a ``mesh`` (a ("data", "model") DeviceMesh) the state is distributed
+by ``tree_shardings(train_state_axes(model), mesh, strategy, ...)``, as the
+reference places it: every rank builds the whole state from the seed and
+keeps its shards. Batches are placed by the model's ``input_axes``: every
+rank makes the same global batch from the seed and keeps its shard. The
+step runs inside ``activation_sharding(mesh, strategy)``. Without a mesh
+the state and batches are plain tensors on ``device``.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -16,8 +21,11 @@ import torch
 from ..checkpoint.manager import CheckpointManager
 from ..data.synthetic import DataPipeline, SyntheticLM
 from ..runtime.monitor import StepMonitor, Timer
+from ..sharding.context import activation_sharding
+from ..sharding.rules import distribute, distribute_tree, tree_shardings
 from .optimizer import OptConfig
-from .step import init_train_state, make_train_step
+from .step import (abstract_train_state, init_train_state, make_train_step,
+                   train_state_axes)
 
 
 @dataclass
@@ -29,6 +37,7 @@ class TrainLoopConfig:
     checkpoint_every: int = 50
     log_every: int = 10
     seed: int = 0
+    strategy: str = "2d"
     microbatches: int = 1
     resume: bool = True
 
@@ -37,13 +46,24 @@ def run_training(model, loop_cfg: TrainLoopConfig,
                  opt_cfg: OptConfig | None = None,
                  monitor: StepMonitor | None = None, log_fn=print,
                  crash_at_step: int | None = None,
-                 device: str | torch.device = "cuda") -> dict:
-    """Train; returns {"state", "losses", "monitor", "resumed_from"}.
-    ``crash_at_step`` raises after that step (fault-tolerance tests). A
-    step's time is host clock around the step and the read of its loss,
-    which waits for the card."""
+                 device: str | torch.device = "cuda", mesh=None) -> dict:
+    """Train; returns {"state", "losses", "grad_norms", "monitor",
+    "resumed_from"}. ``crash_at_step`` raises after that step
+    (fault-tolerance tests). A step's time is host clock around the step
+    and the read of its loss, which waits for the card."""
+    from ..configs.base import ShapeConfig
+
     opt_cfg = opt_cfg or OptConfig(total_steps=loop_cfg.steps,
                                    warmup_steps=max(loop_cfg.steps // 20, 5))
+    state_pl = batch_pl = None
+    if mesh is not None:
+        shape = ShapeConfig("loop", loop_cfg.seq_len, loop_cfg.batch, "train")
+        state_pl = tree_shardings(train_state_axes(model), mesh,
+                                  loop_cfg.strategy,
+                                  abstract_train_state(model))
+        batch_pl = tree_shardings(model.input_axes(shape), mesh,
+                                  loop_cfg.strategy,
+                                  model.abstract_inputs(shape))
     ckpt = None
     start_step = 0
     resumed_from = None
@@ -51,11 +71,14 @@ def run_training(model, loop_cfg: TrainLoopConfig,
     if loop_cfg.checkpoint_dir:
         ckpt = CheckpointManager(loop_cfg.checkpoint_dir)
         if loop_cfg.resume and ckpt.latest_step() is not None:
-            start_step, state = ckpt.restore(device=device)
+            start_step, state = ckpt.restore(placements=state_pl, mesh=mesh,
+                                             device=device)
             resumed_from = start_step
             log_fn(f"resumed from step {start_step}")
     if state is None:
         state = init_train_state(model, loop_cfg.seed, device)
+        if mesh is not None:
+            state = distribute_tree(state, mesh, state_pl)
 
     step_fn = make_train_step(model, opt_cfg,
                               n_microbatches=loop_cfg.microbatches)
@@ -65,15 +88,25 @@ def run_training(model, loop_cfg: TrainLoopConfig,
                         start_index=start_step, extra_fn=extra_fn,
                         transform=transform)
     monitor = monitor or StepMonitor()
-    losses = []
+
+    def scope():
+        if mesh is None:
+            return contextlib.nullcontext()
+        return activation_sharding(mesh, loop_cfg.strategy)
+
+    losses, grad_norms = [], []
     try:
         for step in range(start_step, loop_cfg.steps):
             _, batch = next(pipe)
-            with Timer() as t:
+            if mesh is not None:
+                batch = {k: distribute(v, mesh, batch_pl[k])
+                         for k, v in batch.items()}
+            with Timer() as t, scope():
                 state, metrics = step_fn(state, batch)
                 loss = float(metrics["loss"])
             monitor.observe(step, t.seconds)
             losses.append(loss)
+            grad_norms.append(float(metrics["grad_norm"]))
             if step % loop_cfg.log_every == 0:
                 log_fn(f"step {step:5d} loss {loss:.4f} "
                        f"({t.seconds * 1e3:.0f} ms)")
@@ -85,8 +118,8 @@ def run_training(model, loop_cfg: TrainLoopConfig,
         pipe.close()
         if ckpt:
             ckpt.wait()
-    return {"state": state, "losses": losses, "monitor": monitor,
-            "resumed_from": resumed_from}
+    return {"state": state, "losses": losses, "grad_norms": grad_norms,
+            "monitor": monitor, "resumed_from": resumed_from}
 
 
 def _extra_inputs_fn(cfg, seq_len: int):

@@ -11,6 +11,12 @@ Numbers follow the reference's float32 arithmetic: the step, ``b1 ** step``,
 the bias corrections and the cosine are float32 tensors, not Python
 doubles, and weight decay applies to every parameter with more than one
 dimension, which includes zamba2's stacked (G, E, d) norm weights.
+
+On a mesh the params, gradients and moments are DTensors with the same
+placements (``train.step`` redistributes each gradient to its parameter's)
+and the step a replicated DTensor: the update is elementwise, so it runs
+on each rank's local shards, and only the clipping norm is reduced, to the
+GLOBAL norm over every shard.
 """
 from __future__ import annotations
 
@@ -18,8 +24,10 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.common import leaves, tree_map
+from ..sharding.rules import to_local
 
 
 @dataclass(frozen=True)
@@ -58,7 +66,12 @@ def init_opt_state(params, moment_dtype: str = "float32") -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    sums = [x.float().square().sum() for x in leaves(tree)]
+    """The 2-norm over every leaf, a plain float32 tensor; a DTensor leaf's
+    sum of squares is reduced over its shards."""
+    sums = []
+    for x in leaves(tree):
+        sq = x.float().square().sum()
+        sums.append(sq.full_tensor() if isinstance(sq, DTensor) else sq)
     return torch.sqrt(torch.stack(sums).sum())
 
 
@@ -80,15 +93,15 @@ def adamw_update(cfg: OptConfig, params, grads, state) -> dict:
     ``state["v"]`` are updated and ``state["step"]`` is replaced by the new
     step. grads in any dtype (the same tree as params); moments and updates
     in float32; params keep their dtype. Returns {"grad_norm", "lr"}."""
-    step = state["step"] + 1
+    step = to_local(state["step"]) + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
-                          leaves(state["v"])):
+    for p, g, m, v in zip(*(map(to_local, leaves(t)) for t in (
+            params, grads, state["m"], state["v"]))):
         g = g.float() * scale
         mf = m.float()                   # m itself when m is float32
         mf.mul_(b1).add_((1 - b1) * g)
@@ -102,5 +115,8 @@ def adamw_update(cfg: OptConfig, params, grads, state) -> dict:
         pf.mul_(1 - lr * decay).sub_(lr * delta)
         if pf is not p:
             p.copy_(pf)
-    state["step"] = step
+    old = state["step"]
+    state["step"] = step if not isinstance(old, DTensor) else \
+        DTensor.from_local(step, old.device_mesh, old.placements,
+                           run_check=False)
     return {"grad_norm": gnorm, "lr": lr}

@@ -7,12 +7,25 @@ accumulates the gradients microbatch by microbatch, in the model's
 gradient is divided by the count and added to the running sum. The step
 updates the state IN PLACE (``train.optimizer.adamw_update``) and returns
 it beside its metrics.
+
+On a mesh the state's leaves and the batch are DTensors, and the step runs
+inside the caller's ``activation_sharding`` scope. The loss is reduced to
+every rank before the gradients are taken, and each gradient is
+redistributed to its parameter's placements (a reduce-scatter under FSDP).
+A batch sharded over `data` is split into microbatches PER SHARD: with D
+data ranks of B / D rows each, microbatch i holds rows r * B / D +
+i * B / (D * n) ... + B / (D * n) - 1 of each rank r, where the one-device
+path holds rows i * B / n ... (i + 1) * B / n - 1. The loss is a mean of
+equal-sized microbatch means either way, so the split changes only the
+rounding.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..models.common import leaves, tree_map
+from ..sharding.rules import to_local
 from .optimizer import OptConfig, adamw_update, init_opt_state
 
 
@@ -21,6 +34,24 @@ def init_train_state(model, seed: int = 0,
     params = model.init(seed, device)
     return {"params": params,
             "opt": init_opt_state(params, model.cfg.opt_moment_dtype)}
+
+
+def abstract_train_state(model) -> dict:
+    """The train state's tree on the ``meta`` device."""
+    params = model.abstract()
+    mdt = getattr(torch, model.cfg.opt_moment_dtype)
+    return {"params": params,
+            "opt": {"m": tree_map(lambda _, p: torch.empty_like(p, dtype=mdt),
+                                  params),
+                    "v": tree_map(lambda _, p: torch.empty_like(
+                        p, dtype=torch.float32), params),
+                    "step": torch.empty((), dtype=torch.int32,
+                                        device="meta")}}
+
+
+def train_state_axes(model) -> dict:
+    axes = model.param_axes()
+    return {"params": axes, "opt": {"m": axes, "v": axes, "step": ()}}
 
 
 def _rebuild(tree, flat: list):
@@ -34,7 +65,29 @@ def loss_and_grads(model, params, batch) -> tuple[torch.Tensor, list]:
     with respect to detached leaves sharing its storage."""
     flat = [p.detach().requires_grad_() for p in leaves(params)]
     loss, _ = model.loss(_rebuild(params, flat), batch)
-    return loss.detach(), list(torch.autograd.grad(loss, flat))
+    if not isinstance(loss, DTensor):
+        return loss.detach(), list(torch.autograd.grad(loss, flat))
+    mesh = loss.device_mesh
+    loss = loss.redistribute(mesh, [Replicate()] * mesh.ndim)
+    grads = torch.autograd.grad(loss, flat)
+    grads = [g.redistribute(mesh, p.placements) for g, p in zip(grads, flat)]
+    return loss.detach().to_local(), grads
+
+
+def _microbatch(v, i: int, n: int):
+    """Microbatch i of n of a batch leaf: rows of its first axis; a
+    DTensor's rows are taken from each rank's own shard."""
+    if not v.dim():
+        return v
+    if isinstance(v, DTensor):
+        loc = v.to_local()
+        mb = loc.shape[0] // n
+        return DTensor.from_local(loc[i * mb:(i + 1) * mb], v.device_mesh,
+                                  v.placements, run_check=False)
+    mb = v.shape[0] // n
+    return v[i * mb:(i + 1) * mb]
+
+
 
 
 def make_train_step(model, opt_cfg: OptConfig, n_microbatches: int = 1):
@@ -44,20 +97,19 @@ def make_train_step(model, opt_cfg: OptConfig, n_microbatches: int = 1):
     gdt = getattr(torch, model.cfg.grad_dtype)
 
     def accum_grads(params, batch):
-        B = batch["tokens"].shape[0]
+        B = to_local(batch["tokens"]).shape[0]
         if B % n_microbatches:
-            raise ValueError(f"batch {B} does not split into "
+            raise ValueError(f"batch {B} (per shard) does not split into "
                              f"{n_microbatches} microbatches")
-        mb = B // n_microbatches
         loss = torch.zeros((), dtype=torch.float32,
                            device=batch["tokens"].device)
         acc = [torch.zeros_like(p, dtype=gdt) for p in leaves(params)]
         for i in range(n_microbatches):
-            part = {k: v[i * mb:(i + 1) * mb] if v.dim() else v
+            part = {k: _microbatch(v, i, n_microbatches)
                     for k, v in batch.items()}
             mb_loss, grads = loss_and_grads(model, params, part)
-            for a, g in zip(acc, grads):
-                g = g.float().div_(n_microbatches)
+            for a, g in zip(map(to_local, acc), grads):
+                g = to_local(g).float().div_(n_microbatches)
                 if a.dtype == torch.float32:
                     a.add_(g)
                 else:

@@ -480,13 +480,37 @@ def test_straggler_detection():
 
 # ----------------------------------------------------------------- launcher
 
-@pytest.mark.parametrize("flags,item", [(["--autotune"], "item 10"),
-                                        (["--strategy", "2d"], "item 11.7"),
-                                        (["--model-axis", "2"], "item 11.7")])
+@pytest.mark.parametrize("flags,item", [(["--autotune"], "item 10")])
 def test_launcher_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_main(["--arch", "zamba2-2.7b", "--reduced", "--device", "cpu",
                     *flags])
+
+
+def test_launcher_trains_on_a_mesh_of_one():
+    """The reference's defaults (``--strategy 2d --model-axis 1``): a world
+    of one gloo rank, a (1, 1) ("data", "model") mesh, DTensor parameters;
+    the world is torn down after."""
+    from torch.distributed.tensor import DTensor
+    import torch.distributed as dist
+
+    out = train_main(["--reduced", "--device", "cpu", "--steps", "2"])
+    assert out["mesh"] == (("data", "model"), (1, 1))
+    assert out["backend"] == "gloo"
+    assert all(isinstance(p, DTensor) for p in leaves(out["state"]["params"]))
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+    assert not dist.is_initialized()
+
+
+def test_launcher_refuses_the_remaining_families_on_two_ranks(tmp_path):
+    """A MoE arch on 2 ranks with model axis 2 raises, naming the ROADMAP
+    item that brings it."""
+    from _gloo import result, run_world
+
+    world = run_world("refuse_families", 2, tmp_path)
+    for rank in (0, 1):
+        msg = result(world, "moe", rank)["raised"]
+        assert msg and "ROADMAP item 11.7, the remaining families" in msg
 
 
 def test_launcher_trains_its_default_arch():
