@@ -175,13 +175,23 @@ Phases, one JSON line each:
                steps through generate(), no kernel launch; one training step
                with B2 launches asserted (none for xlstm) and every B2 call
                held in place; logits and losses finite
+  lm_families_mesh  the same four trained on the 1 x 1 NCCL mesh:
+               whisper-medium and xlstm-125m whole through
+               ``launch.train.main``, granite-moe-3b-a800m and qwen2-vl-7b
+               at full width with lm_families' depth through
+               ``run_training(mesh=make_host_mesh(1))``; NCCL, the mesh
+               (1, 1) and DTensor parameters on the card asserted, B2
+               launches asserted and every B2 call held in place; then the
+               same steps on plain tensors, losses held within 2^-7 at
+               every step (bitwise reported), step ms and peak GB of both
 
 then a ``{"kernels": [...]}`` line (the forest kernel's entry counts its
 launches on each path: ``launches`` in serve, then ``frontend_launches``,
 ``ground_truth_launches``, ``stream_launches``, ``sharded_launches``,
 ``cluster_launches`` and ``supervise_launches``; the flash-attention
 entry's ``launches`` are zamba2's training run's, ``smollm_launches``
-smollm-360m's and ``families_launches`` the depth-cut families' step's,
+smollm-360m's, ``families_launches`` the depth-cut families' step's and
+``families_mesh_launches`` their mesh runs',
 with smollm's shape and times beside zamba2's; ``launch_path`` says that
 the training launches come from the mesh path), the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}`` last. Any
@@ -306,6 +316,17 @@ FAMILY_CUTS = {"granite-moe-3b-a800m": dict(n_layers=2),
 FAMILY_TRAIN = {"granite-moe-3b-a800m": (2, 256), "qwen2-vl-7b": (1, 512),
                 "xlstm-125m": (2, 256), "whisper-medium": (2, 256)}
 FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 2, 256, 8
+# the same four families trained on the 1 x 1 NCCL mesh (lm_families_mesh):
+# whisper-medium and xlstm-125m whole, through launch.train.main;
+# granite-moe-3b-a800m and qwen2-vl-7b at full width with FAMILY_CUTS's
+# depth, through run_training on make_host_mesh(1) (the launcher has no
+# depth flag, and one card cannot hold either whole with f32 AdamW, some
+# 16 B a parameter). FAMILY_MESH_STEPS steps of the config's microbatches,
+# each FAMILY_TRAIN's; the same steps on plain tensors beside them, losses
+# held step by step to MESH_LOSS_REL
+FAMILY_MESH_WHOLE = ("whisper-medium", "xlstm-125m")
+FAMILY_MESH_CUT = ("granite-moe-3b-a800m", "qwen2-vl-7b")
+FAMILY_MESH_STEPS = 2
 
 # the LM training path: zamba2-2.7b at full width through launch/train.py,
 # global batch 4 x 1024 in the config's 2 microbatches, 1 warm-up step and
@@ -1728,6 +1749,142 @@ def lm_families_phase(dev, smi: str) -> dict:
     return {"launches": total, "results": results}
 
 
+def lm_families_mesh_phase(dev, smi: str) -> dict:
+    """granite-moe-3b-a800m, qwen2-vl-7b, xlstm-125m and whisper-medium
+    trained on the 1 x 1 NCCL mesh (FAMILY_MESH_WHOLE through
+    ``launch.train.main``, FAMILY_MESH_CUT at full width with FAMILY_CUTS's
+    depth through ``run_training(mesh=make_host_mesh(1))``): the mesh path
+    checked (NCCL, the (1, 1) mesh, every parameter a DTensor on the card),
+    B2 launches counted against ``train_launches_per_step``, every B2 call
+    held in place to its plain version (TRAIN_CALL_REL), the losses finite;
+    then the same steps on plain tensors (``run_training(mesh=None)``),
+    the losses held step by step within MESH_LOSS_REL (bitwise equality
+    reported), step ms and peak GB of both paths."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import ops as fops
+    from repro_torch.kernels.mamba import ops as sops
+    from repro_torch.kernels.watch import watching
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import TrainLoopConfig, run_training
+    from repro_torch.train.optimizer import OptConfig
+
+    t_phase = time.perf_counter()
+    # a world of one NCCL rank that outlives the launcher's calls, so that
+    # each run's mesh can be checked after it
+    if not init_world(dev) or dist.get_backend() != "nccl":
+        raise AssertionError("no world of one NCCL rank")
+    limit = TRAIN_CALL_REL["flash_attention"][0]
+    steps = FAMILY_MESH_STEPS
+    results, total = {}, 0
+    try:
+        for arch in FAMILY_MESH_WHOLE + FAMILY_MESH_CUT:
+            t_arch = time.perf_counter()
+            cut = {} if arch in FAMILY_MESH_WHOLE else FAMILY_CUTS[arch]
+            cfg = replace(get_config(arch), use_pallas=True, **cut)
+            mb_batch, seq = FAMILY_TRAIN[arch]
+            batch = mb_batch * cfg.microbatches
+            per_step = train_launches_per_step(cfg)
+            # the launcher's settings (launch/train.py)
+            loop = TrainLoopConfig(steps=steps, batch=batch, seq_len=seq,
+                                   seed=0, microbatches=cfg.microbatches)
+            opt = OptConfig(lr=3e-3, total_steps=steps,
+                            warmup_steps=max(steps // 20, 5))
+            records = {}
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            sops.launches = fops.launches = 0   # count this run's launches
+            t0 = time.perf_counter()
+            with watching(inplace_check(records)):
+                if arch in FAMILY_MESH_WHOLE:
+                    out = train_main([
+                        "--arch", arch, "--steps", str(steps), "--batch",
+                        str(batch), "--seq-len", str(seq), "--microbatches",
+                        str(cfg.microbatches), "--seed", "0", "--device",
+                        str(dev)])
+                else:
+                    mesh = make_host_mesh(1, dev)
+                    out = run_training(build_model(cfg), loop, opt_cfg=opt,
+                                       device=dev, mesh=mesh)
+                    out["mesh"] = (tuple(mesh.mesh_dim_names),
+                                   tuple(mesh.shape))
+                    out["backend"] = dist.get_backend()
+            torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t0
+            launches = {"flash_attention": fops.launches,
+                        "ssd_scan": sops.launches}
+            on_mesh = mesh_path_check(out, dev)
+            mesh_peak = torch.cuda.max_memory_allocated() / 1e9
+            want = {k: v * steps for k, v in per_step.items()}
+            calls = len(records.get("flash_attention", []))
+            worst = max((e[0] for e in records.get("flash_attention", [])),
+                        default=0.0)
+            if launches != want or calls != want["flash_attention"]:
+                raise AssertionError(f"{arch}: {launches} launches and "
+                                     f"{calls} checked calls in {steps} "
+                                     f"steps on the mesh, expected {want}")
+            if not worst <= limit:
+                raise AssertionError(f"{arch}: a B2 call {worst} of its "
+                                     f"largest value off its plain version "
+                                     f"(limit {limit})")
+            mesh_losses = out["losses"]
+            mesh_step_s = [t for _, t in out["monitor"].history]
+            del out
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            plain = run_training(build_model(cfg), loop, opt_cfg=opt,
+                                 device=dev, mesh=None)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            plain_peak = torch.cuda.max_memory_allocated() / 1e9
+            plain_step_s = [t for _, t in plain["monitor"].history]
+            plain_losses = plain["losses"]
+            del plain
+            apart = [abs(a - b) / abs(b)
+                     for a, b in zip(mesh_losses, plain_losses)]
+            if (len(apart) != steps or not all(np.isfinite(mesh_losses))
+                    or not max(apart) <= MESH_LOSS_REL):
+                raise AssertionError(f"{arch}: mesh losses {mesh_losses} "
+                                     f"against the plain path's "
+                                     f"{plain_losses}: {apart} apart, limit "
+                                     f"{MESH_LOSS_REL}")
+            total += launches["flash_attention"]
+            tokens = batch * seq
+            results[arch] = {
+                "cut": cut, "entry": ("launch.train.main"
+                                      if arch in FAMILY_MESH_WHOLE else
+                                      "run_training(mesh=make_host_mesh(1))"),
+                "params": build_model(cfg).n_params(), "layers": cfg.n_layers,
+                "batch": batch, "seq": seq, "microbatches": cfg.microbatches,
+                "steps": steps, "mesh": on_mesh,
+                "launches": launches, "launches_per_step": per_step,
+                "checked_calls": calls, "worst_call_rel": worst,
+                "losses": {"mesh": mesh_losses, "plain": plain_losses},
+                "losses_apart": apart,
+                "losses_bitwise": mesh_losses == plain_losses,
+                "step_ms": {"mesh": [t * 1e3 for t in mesh_step_s],
+                            "plain": [t * 1e3 for t in plain_step_s]},
+                "last_step_ms": {"mesh": mesh_step_s[-1] * 1e3,
+                                 "plain": plain_step_s[-1] * 1e3},
+                "tokens_per_s": {"mesh": tokens / mesh_step_s[-1],
+                                 "plain": tokens / plain_step_s[-1]},
+                "peak_memory_gb": {"mesh": mesh_peak, "plain": plain_peak},
+                "run_s": {"mesh": mesh_s, "plain": plain_s},
+                "seconds": time.perf_counter() - t_arch}
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    emit("lm_families_mesh", families=results, call_limit=limit,
+         loss_limit=MESH_LOSS_REL, launches=total,
+         seconds=time.perf_counter() - t_phase, card=smi)
+    return {"launches": total, "results": results}
+
+
 def extract_slice(indices: list) -> list:
     """Features of the suite's workloads ``indices``, exported with their
     inputs on the card and again with them on the host; a worker of the
@@ -2929,6 +3086,7 @@ def main() -> int:
         dist.destroy_process_group()
         lm_dense_train_f32_phase(dev)
         families = lm_families_phase(dev, smi)
+        families_mesh = lm_families_mesh_phase(dev, smi)
         t0 = time.perf_counter()
         cv = cv_future.result()
     emit("ground_truth_cv", rows=cv[truth["device"]]["rows"],
@@ -2995,7 +3153,12 @@ def main() -> int:
         "smollm_bound_ms": dense["flash"]["bound_ms"],
         "smollm_bound_by": dense["flash"]["bound_by"],
         "smollm_library_ms": dense["flash"]["library_ms"],
-        "families_launches": families["launches"]["flash_attention"]}]}),
+        "families_launches": families["launches"]["flash_attention"],
+        "families_mesh_launches": families_mesh["launches"],
+        "families_mesh_launch_path": "the 1 x 1 NCCL mesh: whisper-medium "
+        "and xlstm-125m through launch.train.main, granite-moe-3b-a800m and "
+        "qwen2-vl-7b (2 layers) through run_training(mesh=make_host_mesh(1))"
+        }]}),
         flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

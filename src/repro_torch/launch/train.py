@@ -12,12 +12,10 @@ their defaults are the reference's (``--arch smollm-360m --strategy 2d
 synthetic token stream, with its stub patches (vlm) or frames (encdec)
 beside the tokens.
 
-The dense and mamba_hybrid families always train on a ("data", "model")
-DeviceMesh over the world (``make_host_mesh``; a world of one NCCL rank on
-one card, of one gloo rank on the host), under ``--strategy``. The moe,
-vlm, xlstm and encdec families train on plain tensors on a world of one
-and raise on more ranks (ROADMAP item 11.7, the remaining families).
-``--autotune`` raises (ROADMAP item 10). Multi-rank:
+Every family trains on a ("data", "model") DeviceMesh over the world
+(``make_host_mesh``; a world of one NCCL rank on one card, of one gloo
+rank on the host), under ``--strategy``. ``--autotune`` raises (ROADMAP
+item 10). Multi-rank:
 
   torchrun --nproc-per-node N -m repro_torch.launch.train --model-axis M
 """
@@ -26,14 +24,9 @@ from __future__ import annotations
 import argparse
 
 
-# the families whose models place their activations on a mesh
-MESH_FAMILIES = ("dense", "mamba_hybrid")
-
-
 def main(argv=None) -> dict:
     """Train as the flags say; returns ``run_training``'s result, with
-    "mesh" ((names, shape), or None off a mesh) and "backend" (the process
-    group's)."""
+    "mesh" ((names, shape)) and "backend" (the process group's)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true",
@@ -77,13 +70,6 @@ def main(argv=None) -> dict:
     started = init_world(args.device)
     try:
         mesh = make_host_mesh(args.model_axis, args.device)
-        if cfg.family not in MESH_FAMILIES:
-            if mesh.size() > 1:
-                raise NotImplementedError(
-                    f"the {cfg.family} family trains on one rank; "
-                    f"{mesh.size()} ranks wait for ROADMAP item 11.7, the "
-                    f"remaining families")
-            mesh = None
         first = dist.get_rank() == 0          # the rank that reports
         out = run_training(
             model,
@@ -96,8 +82,7 @@ def main(argv=None) -> dict:
                               warmup_steps=max(args.steps // 20, 5)),
             device=args.device, mesh=mesh,
             log_fn=print if first else (lambda *_: None))
-        out["mesh"] = None if mesh is None else (
-            tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+        out["mesh"] = (tuple(mesh.mesh_dim_names), tuple(mesh.shape))
         out["backend"] = dist.get_backend()
     finally:
         if started:

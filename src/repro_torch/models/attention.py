@@ -27,8 +27,10 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.attention import flash_attention
-from ..sharding.context import constrain, current_ctx, on_mesh
-from .common import EMBED, HEAD_DIM, HEADS, KV_HEADS, ParamSpec, apply_rope
+from ..sharding.context import (constrain, current_ctx, on_mesh,
+                                product_on_shards)
+from .common import (EMBED, HEAD_DIM, HEADS, KV_HEADS, ParamSpec, apply_rope,
+                     f32)
 
 
 def attn_specs(cfg) -> dict:
@@ -47,7 +49,11 @@ def attn_specs(cfg) -> dict:
 
 
 def _proj(x, w):
-    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
+    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads; on
+    a mesh, on each rank's shards (the heads may be sharded unevenly for
+    DTensor's view of the flattened product)."""
+    if isinstance(w, DTensor):
+        return product_on_shards(_proj, x, w)
     d, H, Dh = w.shape
     return (x @ w.reshape(d, H * Dh).to(x.dtype)).reshape(*x.shape[:2], H, Dh)
 
@@ -76,7 +82,9 @@ def _qkv(cfg, p, x):
 
 
 def _out(o, wo):
-    """einsum("bshk,hkd->bsd")."""
+    """einsum("bshk,hkd->bsd"); on a mesh, on each rank's shards."""
+    if isinstance(wo, DTensor):
+        return product_on_shards(_out, o, wo, contract=2)
     H, Dh, d = wo.shape
     return o.reshape(*o.shape[:2], H * Dh) @ wo.reshape(H * Dh, d).to(o.dtype)
 
@@ -91,7 +99,7 @@ def _sdpa_block(qg, k, v, *, causal: bool, q_offset: int, kv_valid_len,
     Products accumulate in f32; softmax and masking in f32."""
     Skv = k.shape[1]
     qc = qg.shape[1]
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", f32(qg), f32(k)) * scale
     if causal:
         qi = torch.arange(qc, device=s.device)[:, None] + q_offset
         ki = torch.arange(Skv, device=s.device)[None, :]
@@ -100,7 +108,7 @@ def _sdpa_block(qg, k, v, *, causal: bool, q_offset: int, kv_valid_len,
         ki = torch.arange(Skv, device=s.device)
         s = torch.where(ki < kv_valid_len, s, -1e30)
     pr = torch.softmax(s, dim=-1)
-    return torch.einsum("bhgqk,bkhd->bqhgd", pr.to(v.dtype).float(), v.float())
+    return torch.einsum("bhgqk,bkhd->bqhgd", f32(pr.to(v.dtype)), f32(v))
 
 
 def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_valid_len=None):
@@ -138,7 +146,7 @@ def _attend_core(cfg, q, k, v, cos, sin):
     return _sdpa(q, k, v, causal=True)
 
 
-def _core_on_shards(core, q, k, v, cos, sin):
+def _core_on_shards(core, q, k, v, *tables):
     """(``core`` as a ``local_map`` over the mesh, its DTensor arguments).
     The kernels launch on ``data_ptr``, so no DTensor may reach them: each
     rank runs ``core`` on its shards, the reference's ``shard_map``. The
@@ -146,7 +154,8 @@ def _core_on_shards(core, q, k, v, cos, sin):
     heads shard on the same mesh dimension (a local q head then meets its
     own KV head); heads (or ``head_dim``, the fallback) sharded any other
     way are gathered first: attention cannot run on a ``head_dim`` shard.
-    The rotary tables follow the batch sharding."""
+    The ``tables`` (rotary cos and sin, (B, S, ...)) follow the batch
+    sharding."""
     mesh = q.device_mesh
     qkv_pl = []
     for a, b in zip(q.placements, k.placements):
@@ -154,15 +163,14 @@ def _core_on_shards(core, q, k, v, cos, sin):
             qkv_pl.append(a)
         else:
             qkv_pl.append(Replicate())
-    qkv_pl = tuple(qkv_pl)
-    rope_pl = tuple(p if p == Shard(0) else Replicate() for p in qkv_pl)
+    rope_pl = [p if p == Shard(0) else Replicate() for p in qkv_pl]
     q, k, v = (t.redistribute(mesh, qkv_pl) for t in (q, k, v))
-    cos, sin = (on_mesh(t, mesh).redistribute(mesh, rope_pl)
-                for t in (cos, sin))
-    fn = local_map(core, out_placements=list(qkv_pl),
-                   in_placements=(list(qkv_pl),) * 3 + (list(rope_pl),) * 2,
+    tables = tuple(on_mesh(t, mesh).redistribute(mesh, rope_pl)
+                   for t in tables)
+    fn = local_map(core, out_placements=qkv_pl,
+                   in_placements=(qkv_pl,) * 3 + (rope_pl,) * len(tables),
                    device_mesh=mesh)
-    return fn, (q, k, v, cos, sin)
+    return fn, (q, k, v, *tables)
 
 
 def attend_train(cfg, p, x, cos, sin):
@@ -201,6 +209,15 @@ def attend_decode(cfg, p, x, cos, sin, cache, pos: int):
     return _out(o, p["wo"]), (k_cache, v_cache)
 
 
+def attend_full(q, k, v):
+    """Attention with no mask (``_sdpa``); on a mesh, on each rank's
+    shards."""
+    core, args = partial(_sdpa, causal=False), (q, k, v)
+    if isinstance(q, DTensor):
+        core, args = _core_on_shards(core, *args)
+    return core(*args)
+
+
 def attend_cross(cfg, p, x, kv_cache):
     """Cross-attention of x (B,S,d) against precomputed encoder K/V
     ``(k, v)`` each (B,S_enc,Hkv,Dh): every query sees every key."""
@@ -208,7 +225,7 @@ def attend_cross(cfg, p, x, kv_cache):
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
     k, v = kv_cache
-    return _out(_sdpa(q, k, v, causal=False), p["wo"])
+    return _out(attend_full(q, k, v), p["wo"])
 
 
 def cross_kv(cfg, p, enc_out):

@@ -130,16 +130,23 @@ def remat(on: bool, fn, *args):
 
 # ------------------------------------------------------------------- numerics
 
+def f32(x):
+    """``x`` widened to float32 where the reference computes in float32; a
+    float64 ``x`` (the CPU's float64 parity runs) stays float64, so that
+    such a run rounds nowhere to float32."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rms_norm(x, w, eps: float = 1e-5):
     """In float32, cast to x's dtype, and only then scaled by w."""
-    xf = x.float()
+    xf = f32(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
 
 
 def layer_norm(x, w, b, eps: float = 1e-5):
     """In float32, cast to x's dtype, then scaled by w and shifted by b."""
-    xf = x.float()
+    xf = f32(x)
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
@@ -196,7 +203,8 @@ def mrope_cos_sin(positions3, head_dim: int, theta: float,
     ang_txy = positions3.float()[..., None, :] * freqs[None, None, :, None]
     # ang_txy: (B, S, D/2, 3); pick the driving channel of each band
     sel = torch.repeat_interleave(torch.arange(3, device=dev),
-                                  torch.tensor(sections, device=dev))
+                                  torch.tensor(sections, device=dev),
+                                  output_size=sum(sections))
     ang = torch.gather(ang_txy, -1, sel[None, None, :, None].expand(
         *ang_txy.shape[:-1], 1))[..., 0]
     return torch.cos(ang), torch.sin(ang)
@@ -217,7 +225,7 @@ def cross_entropy_loss(logits, labels, z_loss: float = 1e-4):
     logits (B, S, V), labels (B, S)."""
     # on a mesh the vocab shards are gathered first: DTensor's masked
     # gather over a vocab-sharded dim does not survive the indexing below
-    lf = constrain(logits.float(), ("act_batch", "act_seq", None))
+    lf = constrain(f32(logits), ("act_batch", "act_seq", None))
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     ce = (lse - gold).mean()

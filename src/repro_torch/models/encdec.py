@@ -16,10 +16,12 @@ and each decoder layer. The output projection is the embedding, tied.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from .attention import (_out, _qkv, _sdpa, attend_cross, attend_decode,
-                        attend_prefill, attend_train, attn_specs, cross_kv,
-                        kv_cache_shape)
+from ..sharding.context import on_mesh
+from .attention import (_out, _qkv, attend_cross, attend_decode,
+                        attend_full, attend_prefill, attend_train,
+                        attn_specs, cross_kv, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, KV_HEADS, VOCAB, ParamSpec,
                      cross_entropy_loss, layer_norm, remat, stack_specs,
                      unstack)
@@ -66,6 +68,12 @@ def sinusoid(S: int, d: int, dtype, offset: int = 0, device=None):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
+def _like(table, x):
+    """A position table made alike on every rank, on ``x``'s mesh when
+    ``x`` is a DTensor."""
+    return on_mesh(table, x.device_mesh) if isinstance(x, DTensor) else table
+
+
 def _zero_rope(cfg, B, S, device):
     """cos = 1, sin = 0: the identity rotation."""
     half = cfg.resolved_head_dim // 2
@@ -78,7 +86,7 @@ def _enc_layer(cfg, p, x):
     rotation), then the GELU MLP."""
     h = _norm(p["ln1"], x, cfg)
     q, k, v = _qkv(cfg, p["attn"], h)
-    x = x + _out(_sdpa(q, k, v, causal=False), p["attn"]["wo"])
+    x = x + _out(attend_full(q, k, v), p["attn"]["wo"])
     return x + gelu_mlp(p["mlp"], _norm(p["ln2"], x, cfg))
 
 
@@ -87,8 +95,8 @@ def encode(cfg, params, frames, train: bool = False):
     ``train``: each layer checkpointed under ``cfg.remat``."""
     dt = getattr(torch, cfg.dtype)
     S = frames.shape[1]
-    x = frames.to(dt) + sinusoid(S, cfg.d_model, dt,
-                                 device=frames.device)[None]
+    x = frames.to(dt)
+    x = x + _like(sinusoid(S, cfg.d_model, dt, device=x.device)[None], x)
     for p in unstack(params["enc"]):
         x = remat(train and cfg.remat, _enc_layer, cfg, p, x)
     return _norm(params["ln_enc"], x, cfg)
@@ -158,8 +166,8 @@ def _stack_pairs(pairs) -> tuple:
 def _embed(cfg, params, tokens, offset: int = 0):
     dt = getattr(torch, cfg.dtype)
     x = params["embed"][tokens.long()].to(dt)
-    return x + sinusoid(x.shape[1], cfg.d_model, dt, offset=offset,
-                        device=x.device)[None]
+    return x + _like(sinusoid(x.shape[1], cfg.d_model, dt, offset=offset,
+                              device=x.device)[None], x)
 
 
 def _logits(cfg, params, x):

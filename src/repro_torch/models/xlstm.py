@@ -12,15 +12,26 @@ normalizer ``max(|n^T q|, exp(-m))``.
 sLSTM keeps per-head scalar memories with block-diagonal recurrent weights
 and exponential gating; it is sequential by nature, so it steps over time
 in a Python loop (the reference's ``lax.scan`` over time).
+
+On a mesh both recurrences run on each rank's shards (``local_map``): the
+batch shard, and the heads over a mesh dimension that divides them;
+anything else is gathered first. No loop steps over DTensors: DTensor's
+dispatch on each op of each of S steps would dwarf the work. They start
+from a zero state there; a decode step on a mesh raises.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from .common import EMBED, HEAD_DIM, HEADS, INNER, ParamSpec, rms_norm, silu
+from ..sharding.context import product_on_shards
+from .common import (EMBED, HEAD_DIM, HEADS, INNER, ParamSpec, f32, rms_norm,
+                     silu)
 
 LOG_EPS = -30.0
 
@@ -103,40 +114,93 @@ def mlstm_chunk_scan(q, k, v, logi, logf, state, chunk: int):
     return torch.cat(ys, dim=1)[:, :S], (C, n, m)
 
 
-def mlstm_init_state(cfg, batch: int, device=None):
+def _head_shards(t, dim: int) -> list:
+    """Per mesh dimension, the shard a recurrence over ``t`` (B, S, ...,
+    heads at ``dim``, ...) keeps: ``t``'s batch shard, else the heads where
+    that mesh dimension divides what is left of them, else none."""
+    out, left = [], t.shape[dim]
+    for a, n in zip(t.placements, t.device_mesh.shape):
+        if a == Shard(0):
+            out.append(a)
+        elif left % n == 0 and n > 1:
+            out.append(Shard(dim))
+            left //= n
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _scan_local(chunk: int, q, k, v, logi, f_pre):
+    """``mlstm_chunk_scan`` of one rank's shards from a zero state, the
+    forget gates given before their log-sigmoid; y with its heads
+    flattened, (B, S, H * Dh) (DTensor cannot view a gradient sharded over
+    them back into heads that the mesh does not divide)."""
+    B, S, H, Dh = q.shape
+    zeros = (q.new_zeros((B, H, Dh, Dh)), q.new_zeros((B, H, Dh)),
+             q.new_zeros((B, H)))
+    y, state = mlstm_chunk_scan(q, k, v, logi, F.logsigmoid(f_pre), zeros,
+                                chunk)
+    return y.reshape(B, S, H * Dh), state
+
+
+def _scan_on_shards(q, k, v, logi, f_pre, state, chunk: int):
+    """``_scan_local`` on each rank's shards."""
+    if state is not None:
+        raise NotImplementedError("a carried mLSTM state on a mesh (mesh "
+                                  "training starts from zeros)")
+    mesh = q.device_mesh
+    pl = _head_shards(q, 2)
+    st = [Shard(1) if a == Shard(2) else a for a in pl]
+    fn = local_map(partial(_scan_local, chunk),
+                   out_placements=(pl, st, st, st),
+                   in_placements=(pl,) * 5, device_mesh=mesh)
+    return fn(*(t.redistribute(mesh, pl) for t in (q, k, v, logi, f_pre)))
+
+
+def mlstm_init_state(cfg, batch: int, device=None, dtype=torch.float32):
     up = int(cfg.proj_factor * cfg.d_model)
     H = cfg.n_heads
     Dh = up // H
-    return (torch.zeros((batch, H, Dh, Dh), device=device),
-            torch.zeros((batch, H, Dh), device=device),
-            torch.zeros((batch, H), device=device))
+    return (torch.zeros((batch, H, Dh, Dh), device=device, dtype=dtype),
+            torch.zeros((batch, H, Dh), device=device, dtype=dtype),
+            torch.zeros((batch, H), device=device, dtype=dtype))
 
 
 def _heads(h, w):
-    """einsum("bsu,uhd->bshd") as one matmul over the flattened heads."""
+    """einsum("bsu,uhd->bshd") as one matmul over the flattened heads; on a
+    mesh, on each rank's shards."""
+    if isinstance(w, DTensor):
+        return product_on_shards(_heads, h, w)
     u, H, Dh = w.shape
     return (h @ w.reshape(u, H * Dh).to(h.dtype)).reshape(*h.shape[:2], H, Dh)
 
 
 def mlstm_apply(cfg, p, x, state=None, *, decode: bool = False):
     """x (B,S,d). Returns (out, state); ``decode`` (S = 1) takes the O(1)
-    recurrence, otherwise the chunk scan (chunks of min(64, max(8, S)))."""
+    recurrence, otherwise the chunk scan (chunks of min(64, max(8, S))).
+    On a mesh the chunk scan runs on the shards from a zero state; a decode
+    step there raises."""
     B, S, d = x.shape
+    if decode and S != 1:
+        raise ValueError(f"a decode step takes one token, got {S}")
+    if decode and isinstance(x, DTensor):
+        raise NotImplementedError("an mLSTM decode step on a mesh")
     dt = x.dtype
     h = x @ p["w_up"].to(dt)                                    # (B,S,up)
     gate = silu(x @ p["w_gate"].to(dt))
-    q, k, v = (_heads(h, p[w]).float() for w in ("wq", "wk", "wv"))
-    hf = h.float()
-    logi = hf @ p["w_i"].float() + p["b_i"].float()
-    logf = F.logsigmoid(hf @ p["w_f"].float() + p["b_f"].float())
+    q, k, v = (f32(_heads(h, p[w])) for w in ("wq", "wk", "wv"))
+    hf = f32(h)
+    logi = hf @ f32(p["w_i"]) + f32(p["b_i"])
+    f_pre = hf @ f32(p["w_f"]) + f32(p["b_f"])
 
-    if state is None:
-        state = mlstm_init_state(cfg, B, x.device)
-
-    if decode:
-        if S != 1:
-            raise ValueError(f"a decode step takes one token, got {S}")
-        C, n, m = state
+    if isinstance(q, DTensor):
+        # the log-sigmoid runs on the shards (DTensor has no rule for its
+        # backward)
+        y, state = _scan_on_shards(q, k, v, logi, f_pre, state,
+                                   chunk=min(64, max(8, S)))
+    elif decode:
+        logf = F.logsigmoid(f_pre)
+        C, n, m = state or mlstm_init_state(cfg, B, x.device, q.dtype)
         scale = _f32_scale(q.shape[-1])
         li, lf = logi[:, 0], logf[:, 0]                         # (B,H)
         m_new = torch.maximum(lf + m, li)
@@ -152,8 +216,10 @@ def mlstm_apply(cfg, p, x, state=None, *, decode: bool = False):
         y = (num / den[..., None].clamp_min(1e-30))[:, None]   # (B,1,H,Dh)
         state = (C, n, m_new)
     else:
-        y, state = mlstm_chunk_scan(q, k, v, logi, logf, state,
-                                    chunk=min(64, max(8, S)))
+        y, state = mlstm_chunk_scan(
+            q, k, v, logi, F.logsigmoid(f_pre),
+            state or mlstm_init_state(cfg, B, x.device, q.dtype),
+            chunk=min(64, max(8, S)))
 
     y = y.reshape(B, S, -1).to(dt)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps) * gate
@@ -175,10 +241,11 @@ def slstm_specs(cfg) -> dict:
     }
 
 
-def slstm_init_state(cfg, batch: int, device=None):
+def slstm_init_state(cfg, batch: int, device=None, dtype=torch.float32):
     """(c, n, h, m), each (B, H, Dh) f32 zeros."""
     H, Dh = cfg.n_heads, cfg.d_model // cfg.n_heads
-    return tuple(torch.zeros((batch, H, Dh), device=device) for _ in range(4))
+    return tuple(torch.zeros((batch, H, Dh), device=device, dtype=dtype)
+                 for _ in range(4))
 
 
 def _slstm_cell(r, b, x_t, state):
@@ -186,7 +253,7 @@ def _slstm_cell(r, b, x_t, state):
     bias in f32; state (c, n, h, m)."""
     c, n, h, m = state
     rec = torch.einsum("bhd,hdge->bghe", h, r)
-    g = x_t.float() + rec + b[None]
+    g = f32(x_t) + rec + b[None]
     zi, ii, fi, oi = g[:, 0], g[:, 1], g[:, 2], g[:, 3]
     logf = F.logsigmoid(fi)
     m_new = torch.maximum(logf + m, ii)
@@ -198,22 +265,76 @@ def _slstm_cell(r, b, x_t, state):
     return (c, n, h, m_new)
 
 
-def slstm_apply(cfg, p, x, state=None, *, decode: bool = False):
-    """x (B,S,d). Returns (out, state): the cell stepped over the S
-    positions one by one (one step when ``decode``)."""
-    B, S, d = x.shape
-    dt = x.dtype
-    if state is None:
-        state = slstm_init_state(cfg, B, x.device)
-    w = p["w_in"]
-    gates = (x @ w.reshape(d, -1).to(dt)).reshape(B, S, *w.shape[1:])
-    r, b = p["r"].float(), p["b"].float()
-    if decode and S != 1:
-        raise ValueError(f"a decode step takes one token, got {S}")
+def _gates(x, w):
+    """einsum("bsd,dghk->bsghk"), the four gates' pre-activations, as one
+    matmul; on a mesh, on each rank's shards."""
+    if isinstance(w, DTensor):
+        return product_on_shards(_gates, x, w)
+    return (x @ w.reshape(w.shape[0], -1).to(x.dtype)).reshape(
+        *x.shape[:2], *w.shape[1:])
+
+
+def _slstm_steps(gates, r, b, state):
+    """The cell stepped over the S positions of gates (B,S,4,H,Dh) from
+    ``state``; returns (h of every step, its heads flattened (B,S,H*Dh),
+    the last state)."""
     hs = []
-    for t in range(S):
+    for t in range(gates.shape[1]):
         state = _slstm_cell(r, b, gates[:, t], state)
         hs.append(state[2])
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(dt)      # (B,S,H,Dh)
+    return torch.stack(hs, dim=1).flatten(2), state
+
+
+def _steps_from_zeros(gates, r, b):
+    """``_slstm_steps`` of one rank's shards from a zero state."""
+    B, _, _, H, Dh = gates.shape
+    return _slstm_steps(gates, r, b, tuple(
+        gates.new_zeros((B, H, Dh), dtype=r.dtype) for _ in range(4)))
+
+
+def _steps_on_shards(gates, r, b, state):
+    """``_steps_from_zeros`` on each rank's shards: the batch and the heads
+    (gates' dimension 3); r and b follow the heads, and their gradients
+    are partial sums over the batch shards."""
+    if state is not None:
+        raise NotImplementedError("a carried sLSTM state on a mesh (mesh "
+                                  "training starts from zeros)")
+    mesh = gates.device_mesh
+    g_pl = _head_shards(gates, 3)
+    heads = [a == Shard(3) for a in g_pl]
+    r_pl = [Shard(0) if h else Replicate() for h in heads]
+    b_pl = [Shard(1) if h else Replicate() for h in heads]
+    grad = [Partial() if a == Shard(0) else Replicate() for a in g_pl]
+    r_grad = [p if h else g for h, p, g in zip(heads, r_pl, grad)]
+    b_grad = [p if h else g for h, p, g in zip(heads, b_pl, grad)]
+    y_pl = [Shard(2) if h else a for h, a in zip(heads, g_pl)]
+    st = [Shard(1) if h else a for h, a in zip(heads, g_pl)]
+    fn = local_map(_steps_from_zeros, out_placements=(y_pl,) + (st,) * 4,
+                   in_placements=(g_pl, r_pl, b_pl),
+                   in_grad_placements=(g_pl, r_grad, b_grad),
+                   device_mesh=mesh)
+    return fn(gates.redistribute(mesh, g_pl), r.redistribute(mesh, r_pl),
+              b.redistribute(mesh, b_pl))
+
+
+def slstm_apply(cfg, p, x, state=None, *, decode: bool = False):
+    """x (B,S,d). Returns (out, state): the cell stepped over the S
+    positions one by one (one step when ``decode``). On a mesh the steps
+    run on the shards from a zero state; a decode step there raises."""
+    B, S, d = x.shape
+    if decode and S != 1:
+        raise ValueError(f"a decode step takes one token, got {S}")
+    if decode and isinstance(x, DTensor):
+        raise NotImplementedError("an sLSTM decode step on a mesh")
+    dt = x.dtype
+    gates = _gates(x, p["w_in"])
+    r, b = f32(p["r"]), f32(p["b"])
+    if isinstance(gates, DTensor):
+        y, state = _steps_on_shards(gates, r, b, state)
+    else:
+        if state is None:
+            state = slstm_init_state(cfg, B, x.device, r.dtype)
+        y, state = _slstm_steps(gates, r, b, state)
+    y = y.reshape(B, S, d).to(dt)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps)
     return y @ p["w_out"].to(dt), state

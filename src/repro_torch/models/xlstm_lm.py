@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.context import constrain
 from .common import (BATCH, EMBED, VOCAB, ParamSpec, cross_entropy_loss,
                      remat, rms_norm, stack_specs, unstack)
 from .xlstm import mlstm_apply, mlstm_specs, slstm_apply, slstm_specs
@@ -97,7 +98,8 @@ def _forward(cfg, params, x, mode, states=None):
 
 
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    return constrain(x, ("act_batch", "act_seq", "act_embed"))
 
 
 def xlstm_loss(cfg, params, batch_dict):

@@ -14,6 +14,12 @@ feature dim is replicated.
 Tensors the model makes itself (rotary tables, masks, position ids) are
 plain tensors; where they meet a DTensor, ``on_mesh`` makes them
 replicated DTensors on its mesh (every rank made the same values).
+
+A product that contracts heads with a weight sharded over (heads,
+head_dim) runs on each rank's shards (``product_on_shards``): DTensor
+cannot unflatten a sharded ``heads x head_dim`` dimension into a head
+count that the mesh dimension does not divide (smollm's 15 heads on a
+model axis of 2).
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ import contextlib
 import contextvars
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from .rules import STRATEGIES, placements, spec_for_axes
 
@@ -115,3 +122,33 @@ def on_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
         return t
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def product_on_shards(fn, x, w, contract: int = 1):
+    """``fn(x, w)``, a product contracting x's last ``contract`` dimensions
+    with w's first ``contract`` ones, run by each rank on its shards of the
+    DTensors x and w (``local_map``; ``fn`` sees plain tensors). Per mesh
+    dimension: x's row shards (batch, sequence) are kept and w gathered
+    there; a contracted dimension sharded in x is sharded alike in w and
+    the product is a ``Partial`` sum; otherwise x is replicated and w keeps
+    a shard of an output dimension (heads or ``head_dim``), which the
+    product then carries; any other shard of w is gathered. Gradients of
+    an operand replicated against the other's shards are partial sums."""
+    mesh = x.device_mesh
+    lead = x.ndim - contract
+    x_pl, w_pl, out_pl, x_grad, w_grad = [], [], [], [], []
+    for a, b in zip(x.placements, w.placements):
+        if isinstance(a, Shard) and a.dim < lead:            # rows
+            pl = (a, Replicate(), a, a, Partial())
+        elif isinstance(a, Shard):                           # contracted
+            pl = (a, Shard(a.dim - lead), Partial(), a, Shard(a.dim - lead))
+        elif isinstance(b, Shard) and b.dim >= contract:     # w's outputs
+            pl = (Replicate(), b, Shard(lead + b.dim - contract), Partial(),
+                  b)
+        else:
+            pl = (Replicate(),) * 5
+        for dst, p in zip((x_pl, w_pl, out_pl, x_grad, w_grad), pl):
+            dst.append(p)
+    fn = local_map(fn, out_placements=out_pl, in_placements=(x_pl, w_pl),
+                   in_grad_placements=(x_grad, w_grad), device_mesh=mesh)
+    return fn(x.redistribute(mesh, x_pl), w.redistribute(mesh, w_pl))

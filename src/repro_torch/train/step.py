@@ -12,12 +12,16 @@ On a mesh the state's leaves and the batch are DTensors, and the step runs
 inside the caller's ``activation_sharding`` scope. The loss is reduced to
 every rank before the gradients are taken, and each gradient is
 redistributed to its parameter's placements (a reduce-scatter under FSDP).
-A batch sharded over `data` is split into microbatches PER SHARD: with D
-data ranks of B / D rows each, microbatch i holds rows r * B / D +
-i * B / (D * n) ... + B / (D * n) - 1 of each rank r, where the one-device
-path holds rows i * B / n ... (i + 1) * B / n - 1. The loss is a mean of
-equal-sized microbatch means either way, so the split changes only the
-rounding.
+The step alone decides which rows form microbatch i. On one device they
+are rows i * B / n ... (i + 1) * B / n - 1, as the reference's reshape has
+them. A batch sharded over `data` is split PER SHARD: with D data ranks of
+B / D rows each, microbatch i holds rows r * B / D + i * B / (D * n) ...
++ B / (D * n) - 1 of each rank r. The loss is a mean of equal-sized
+microbatch means either way, so for most models the split changes only
+the rounding, and it needs no communication. A MoE's routing (which tokens
+overflow an expert) and its load-balance loss depend on which tokens share
+a microbatch, so for a MoE a sharded batch is gathered once a step and
+split by its global rows, as on one device.
 """
 from __future__ import annotations
 
@@ -74,20 +78,21 @@ def loss_and_grads(model, params, batch) -> tuple[torch.Tensor, list]:
     return loss.detach().to_local(), grads
 
 
-def _microbatch(v, i: int, n: int):
-    """Microbatch i of n of a batch leaf: rows of its first axis; a
-    DTensor's rows are taken from each rank's own shard."""
+def _microbatches(v, n: int, global_rows: bool) -> list:
+    """The n microbatches of a batch leaf, by rows of its first axis (a
+    scalar is every microbatch's). A DTensor's rows are taken from each
+    rank's own shard, or with ``global_rows`` from the gathered whole, each
+    microbatch placed as ``v`` is."""
     if not v.dim():
-        return v
-    if isinstance(v, DTensor):
-        loc = v.to_local()
-        mb = loc.shape[0] // n
-        return DTensor.from_local(loc[i * mb:(i + 1) * mb], v.device_mesh,
-                                  v.placements, run_check=False)
-    mb = v.shape[0] // n
-    return v[i * mb:(i + 1) * mb]
-
-
+        return [v] * n
+    if not isinstance(v, DTensor):
+        return list(v.chunk(n))
+    mesh, pl = v.device_mesh, v.placements
+    if global_rows:
+        whole = v.redistribute(mesh, [Replicate()] * mesh.ndim)
+        return [part.redistribute(mesh, pl) for part in whole.chunk(n)]
+    return [DTensor.from_local(part, mesh, pl, run_check=False)
+            for part in v.to_local().chunk(n)]
 
 
 def make_train_step(model, opt_cfg: OptConfig, n_microbatches: int = 1):
@@ -95,6 +100,7 @@ def make_train_step(model, opt_cfg: OptConfig, n_microbatches: int = 1):
     holds float32 scalars on the state's device: "loss", "grad_norm",
     "lr"."""
     gdt = getattr(torch, model.cfg.grad_dtype)
+    global_rows = bool(model.cfg.n_experts)
 
     def accum_grads(params, batch):
         B = to_local(batch["tokens"]).shape[0]
@@ -104,9 +110,10 @@ def make_train_step(model, opt_cfg: OptConfig, n_microbatches: int = 1):
         loss = torch.zeros((), dtype=torch.float32,
                            device=batch["tokens"].device)
         acc = [torch.zeros_like(p, dtype=gdt) for p in leaves(params)]
+        parts = {k: _microbatches(v, n_microbatches, global_rows)
+                 for k, v in batch.items()}
         for i in range(n_microbatches):
-            part = {k: _microbatch(v, i, n_microbatches)
-                    for k, v in batch.items()}
+            part = {k: v[i] for k, v in parts.items()}
             mb_loss, grads = loss_and_grads(model, params, part)
             for a, g in zip(map(to_local, acc), grads):
                 g = to_local(g).float().div_(n_microbatches)

@@ -455,16 +455,55 @@ def pipeline(rank, world, out, checks):
     checks("forward", run)
 
 
-def refuse_families(rank, world, out, checks):
-    """``train_main`` on 2 ranks with model axis 2: a MoE arch raises."""
+def launcher_families(rank, world, out, checks, archs: tuple):
+    """``train_main`` on 2 ranks with model axis 2, one step of each
+    reduced arch in ``archs``."""
     from repro_torch.launch.train import main as train_main
 
-    def run():
-        try:
-            train_main(["--arch", "granite-moe-3b-a800m", "--reduced",
-                        "--device", "cpu", "--model-axis", "2", "--steps",
-                        "1"])
-        except NotImplementedError as exc:
-            return {"raised": str(exc)}
-        return {"raised": None}
-    checks("moe", run)
+    for arch in archs:
+        def run(arch=arch):
+            got = train_main(["--arch", arch, "--reduced", "--device", "cpu",
+                              "--model-axis", "2", "--steps", "1"])
+            return {"mesh": got["mesh"], "backend": got["backend"],
+                    "losses": got["losses"],
+                    "dtensor": all(type(p).__name__ == "DTensor" for p in
+                                   _leaves(got["state"]["params"]))}
+        checks(arch, run)
+
+
+def _record_drops():
+    """Patch the MoE's ``dispatch_slots`` to record the keep mask of every
+    routing choice it ranks; returns the list it appends to."""
+    from repro_torch.models import moe
+
+    seen = []
+    slots = moe.dispatch_slots
+
+    def recording(e_idx, n_experts, cap):
+        keep, slot = slots(e_idx, n_experts, cap)
+        seen.append(keep.numpy().copy())
+        return keep, slot
+    moe.dispatch_slots = recording
+    return seen
+
+
+def mesh_families(rank, world, out, checks, ckpts: dict, runs: dict):
+    """Reduced archs trained on a 2 x 2 mesh from the state in
+    ``ckpts[name]``: ``runs[name]`` is (arch, config overrides, loop
+    overrides, strategies). The MoE's keep masks are recorded."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    drops = _record_drops()
+    mesh22 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data",
+                                                             "model"))
+    for name, (arch, overrides, loop_kw, strategies) in runs.items():
+        for strategy in strategies:
+            def run(arch=arch, overrides=overrides, loop_kw=loop_kw,
+                    strategy=strategy, name=name):
+                drops.clear()
+                got = train_run(mesh_config(arch, **overrides), mesh22,
+                                dict(loop_kw, strategy=strategy),
+                                ckpt=ckpts[name])
+                got["keep"] = list(drops)
+                return got
+            checks(f"{name}/{strategy}", run)

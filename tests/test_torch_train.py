@@ -502,15 +502,35 @@ def test_launcher_trains_on_a_mesh_of_one():
     assert not dist.is_initialized()
 
 
-def test_launcher_refuses_the_remaining_families_on_two_ranks(tmp_path):
-    """A MoE arch on 2 ranks with model axis 2 raises, naming the ROADMAP
-    item that brings it."""
-    from _gloo import result, run_world
+MESH_FAMILIES = {"moe": "granite-moe-3b-a800m", "vlm": "qwen2-vl-7b",
+                 "xlstm": "xlstm-125m", "encdec": "whisper-medium"}
 
-    world = run_world("refuse_families", 2, tmp_path)
-    for rank in (0, 1):
-        msg = result(world, "moe", rank)["raised"]
-        assert msg and "ROADMAP item 11.7, the remaining families" in msg
+
+@pytest.fixture(scope="module")
+def two_rank_families(tmp_path_factory):
+    from _gloo import run_world
+
+    return run_world("launcher_families", 2,
+                     tmp_path_factory.mktemp("families"),
+                     archs=tuple(MESH_FAMILIES.values()))
+
+
+@pytest.mark.parametrize("family", list(MESH_FAMILIES))
+def test_launcher_trains_every_family_on_two_ranks(two_rank_families,
+                                                   family):
+    """The moe, vlm, xlstm and encdec families train one step on 2 gloo
+    ranks with model axis 2: a (1, 2) ("data", "model") mesh, DTensor
+    parameters, the same finite loss on both ranks."""
+    from _gloo import result
+
+    arch = MESH_FAMILIES[family]
+    assert ARCHS[arch].family == family
+    got = [result(two_rank_families, arch, rank) for rank in (0, 1)]
+    for g in got:
+        assert g["mesh"] == (("data", "model"), (1, 2))
+        assert g["backend"] == "gloo" and g["dtensor"]
+        assert len(g["losses"]) == 1 and np.isfinite(g["losses"]).all()
+    assert got[0]["losses"] == got[1]["losses"]
 
 
 def test_launcher_trains_its_default_arch():
