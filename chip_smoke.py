@@ -185,6 +185,29 @@ Phases, one JSON line each:
                same steps on plain tensors, losses held within 2^-7 at
                every step (bitwise reported), step ms and peak GB of both
 
+  roofline_calibration  (after the build) the cost counter
+               (``core/hlo_analysis.py``) and the card's data-sheet
+               constants (``launch/roofline.py``) against a bf16 8192^3
+               matmul (2 N^3 FLOPs counted exactly) and a 4 GiB bf16 clone
+               (twice its bytes counted exactly), each timed by CUDA events:
+               bound / measured at most 1.05; ``HBM_PER_CHIP`` equal to the
+               card's ``total_memory``
+  roofline_step  (inside lm_dense_train) that phase's step counted on its
+               real tensors on the 1 x 1 NCCL mesh (B2 counted as its plain
+               version's FLOPs): the report's row, useful ratio, counted
+               FLOPs beside ``model_flops_for``; the measured step ms (the
+               median of steps 2-4) at least the bound; the counted peak
+               within a factor 2 of ``max_memory_allocated``
+  roofline_autotune  ``launch.train.main --autotune`` (smollm-360m, 2
+               steps of 8 x 1024): the pick, trained, losses finite
+  roofline_dryrun  ``python -m repro_torch.launch.dryrun`` on smollm-360m's
+               ``train_4k`` cell at full width and depth on a fake
+               pod16x16 under 2d, in a subprocess off the card started
+               first and running beside every phase up to the CV worker's
+               (read after lm_families_mesh): status ok, its row and
+               seconds
+  roofline     the four parts' numbers in one line
+
 then a ``{"kernels": [...]}`` line (the forest kernel's entry counts its
 launches on each path: ``launches`` in serve, then ``frontend_launches``,
 ``ground_truth_launches``, ``stream_launches``, ``sharded_launches``,
@@ -201,6 +224,7 @@ exits non-zero before printing any result. The kernels build into
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import multiprocessing
 import subprocess
@@ -327,6 +351,24 @@ FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 2, 256, 8
 FAMILY_MESH_WHOLE = ("whisper-medium", "xlstm-125m")
 FAMILY_MESH_CUT = ("granite-moe-3b-a800m", "qwen2-vl-7b")
 FAMILY_MESH_STEPS = 2
+
+# the roofline phases (the cost counter, core/hlo_analysis.py, and the
+# roofline, launch/roofline.py): a bf16 8192^3 matmul and a 4 GiB bf16
+# clone, each counted exactly and timed, its share of the data sheet's
+# bound at most ROOFLINE_SHARE_MAX (above it a count or a constant is
+# wrong); smollm-360m's counted training step (lm_dense_train's, on the
+# 1 x 1 NCCL mesh), its counted live-bytes peak within a factor
+# PEAK_FACTOR of torch's reading either way; launch.train.main --autotune
+# at AUTOTUNE_* (2 steps); one dry-run cell at full width and depth in a
+# subprocess (CPU only, meta tensors on a fake process group of 256)
+CALIB_MATMUL_N = 8192
+CALIB_CLONE_BYTES = 4 * 2 ** 30
+ROOFLINE_SHARE_MAX = 1.05
+PEAK_FACTOR = 2.0
+AUTOTUNE_ARCH, AUTOTUNE_BATCH, AUTOTUNE_SEQ, AUTOTUNE_STEPS = (
+    "smollm-360m", 8, 1024, 2)
+DRYRUN_CELL = ("smollm-360m", "train_4k", "pod16x16", "2d")
+DRYRUN_TIMEOUT_S = 900
 
 # the LM training path: zamba2-2.7b at full width through launch/train.py,
 # global batch 4 x 1024 in the config's 2 microbatches, 1 warm-up step and
@@ -1362,11 +1404,12 @@ def lm_dense_train_phase(dev, smi: str) -> dict:
     cfg = run["cfg"]
     trace = profile_breakdown(lambda: run["step"](run["state"], run["batch"]),
                               {"flash": FLASH_KERNELS}, top=12)
+    step_ms = float(np.median(run["step_s"][1:])) * 1e3
+    roofline = roofline_step_phase(dev, cfg, run, step_ms, smi)
     for k in ("state", "step", "batch"):
         del run[k]
     torch.cuda.empty_cache()
     flash = flash_timing(dev, FLASH_MODEL_CASES[DENSE_ARCH])
-    step_ms = float(np.median(run["step_s"][1:])) * 1e3
     emit("lm_dense_train", arch=DENSE_ARCH, params=run["params"],
          layers=cfg.n_layers, global_batch=DENSE_TRAIN_BATCH,
          seq=DENSE_TRAIN_SEQ, microbatches=cfg.microbatches,
@@ -1383,7 +1426,8 @@ def lm_dense_train_phase(dev, smi: str) -> dict:
          seconds=time.perf_counter() - t_phase, card=smi)
     return {"launches": run["launches"], "per_step": run["per_step"],
             "flash": flash, "losses": run["losses"], "step_s": run["step_s"],
-            "peak_memory_gb": run["peak_memory_gb"], "run_s": run["run_s"]}
+            "peak_memory_gb": run["peak_memory_gb"], "run_s": run["run_s"],
+            "roofline": roofline}
 
 
 def mesh_parity_phase(dev, dense: dict, smi: str) -> dict:
@@ -2783,12 +2827,205 @@ def supervise_phase(dev, est, dev0: str, smi: str) -> dict:
     return {"launches": smoke_launches + launches}
 
 
+def roofline_calibration_phase(dev, smi: str) -> dict:
+    """(a) The counter and the card's constants against two programs whose
+    bound is known: a bf16 matmul of CALIB_MATMUL_N^3 (counted FLOPs
+    exactly 2 N^3) and a clone of CALIB_CLONE_BYTES of bf16 (counted bytes
+    exactly twice that: read once, written once), each timed by CUDA
+    events; roofline_frac = bound / measured, at most ROOFLINE_SHARE_MAX.
+    ``HBM_PER_CHIP`` is held to the card's ``total_memory``."""
+    import torch
+    from repro_torch.core.hlo_analysis import count_program
+    from repro_torch.launch.roofline import (HBM_PER_CHIP, ROOFLINE_HBM_BW,
+                                             ROOFLINE_PEAK_FLOPS)
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    if total != HBM_PER_CHIP:
+        raise AssertionError(f"HBM_PER_CHIP {HBM_PER_CHIP} against the "
+                             f"card's total_memory {total}")
+    n = CALIB_MATMUL_N
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((n, n), generator=g, device=dev, dtype=torch.bfloat16)
+    b = torch.randn((n, n), generator=g, device=dev, dtype=torch.bfloat16)
+    mm = count_program(torch.matmul, a, b).costs
+    if mm.flops != 2 * n ** 3:
+        raise AssertionError(f"counted {mm.flops} FLOPs for a {n}^3 matmul")
+    mm_ms = cuda_ms(lambda: torch.matmul(a, b), iters=20, warmup=5)
+    mm_bound = mm.flops / ROOFLINE_PEAK_FLOPS * 1e3
+    del a, b
+    x = torch.empty(CALIB_CLONE_BYTES // 2, dtype=torch.bfloat16, device=dev)
+    x.normal_(generator=g)
+    cp = count_program(torch.clone, x).costs
+    if cp.hbm_bytes != 2 * CALIB_CLONE_BYTES:
+        raise AssertionError(f"counted {cp.hbm_bytes} bytes for a clone of "
+                             f"{CALIB_CLONE_BYTES}")
+    cp_ms = cuda_ms(lambda: x.clone(), iters=10, warmup=2)
+    cp_bound = cp.hbm_bytes / ROOFLINE_HBM_BW * 1e3
+    del x
+    torch.cuda.empty_cache()
+    out = {"matmul": {"n": n, "flops": mm.flops, "ms": mm_ms,
+                      "bound_ms": mm_bound, "roofline_frac": mm_bound / mm_ms},
+           "clone": {"bytes": cp.hbm_bytes, "ms": cp_ms, "bound_ms": cp_bound,
+                     "roofline_frac": cp_bound / cp_ms},
+           "total_memory": total}
+    emit("roofline_calibration", **out, share_max=ROOFLINE_SHARE_MAX,
+         peak_flops=ROOFLINE_PEAK_FLOPS, hbm_bw=ROOFLINE_HBM_BW, card=smi)
+    high = {k: v["roofline_frac"] for k, v in out.items()
+            if isinstance(v, dict) and v["roofline_frac"] > ROOFLINE_SHARE_MAX}
+    if high:
+        raise AssertionError(f"roofline shares above {ROOFLINE_SHARE_MAX}: "
+                             f"{high}")
+    return out
+
+
+def roofline_step_phase(dev, cfg, run: dict, step_ms: float,
+                        smi: str) -> dict:
+    """(b) lm_dense_train's step counted on its real tensors (the 1 x 1
+    NCCL mesh, B2 counted as its plain version's FLOPs): the report's row,
+    useful_ratio, the counted FLOPs against ``model_flops_for``; the step's
+    measured ms at least the roofline bound; the counted live-bytes peak
+    within PEAK_FACTOR of ``max_memory_allocated`` over the same step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.hlo_analysis import count_program, xla_cost_analysis
+    from repro_torch.launch.roofline import analyze_cell
+
+    shape = ShapeConfig("lm_dense_train", DENSE_TRAIN_SEQ, DENSE_TRAIN_BATCH,
+                        "train")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counted = count_program(run["step"], run["state"], run["batch"],
+                            n_devices=1)
+    torch.cuda.synchronize()
+    torch_peak = torch.cuda.max_memory_allocated()
+    loss = float(counted.output[1]["loss"])
+    del counted.output
+    rep = analyze_cell(counted.costs, peak_bytes=counted.peak_bytes,
+                       arg_bytes=counted.arg_bytes, out_bytes=counted.out_bytes,
+                       xla_flops=xla_cost_analysis(counted)["flops"],
+                       arch=DENSE_ARCH, shape=shape, mesh_name="1x1",
+                       n_devices=1, strategy="2d", cfg=cfg)
+    bound_ms = rep.t_bound * 1e3
+    out = {"row": rep.row(), "useful_ratio": rep.useful_ratio,
+           "counted_flops": rep.hlo_flops, "model_flops": rep.model_flops,
+           "library_flops": rep.xla_flops, "hbm_bytes": rep.hlo_bytes,
+           "transcendentals": counted.costs.transcendentals,
+           "collective_counts": counted.costs.collective_counts,
+           "dominant": rep.dominant, "t_compute_ms": rep.t_compute * 1e3,
+           "t_memory_ms": rep.t_memory * 1e3, "bound_ms": bound_ms,
+           "step_ms": step_ms, "bound_share": bound_ms / step_ms,
+           "counted_peak_bytes": counted.peak_bytes,
+           "torch_peak_bytes": torch_peak,
+           "peak_ratio": counted.peak_bytes / torch_peak,
+           "counting_s": counted.seconds, "loss": loss}
+    emit("roofline_step", arch=DENSE_ARCH, global_batch=DENSE_TRAIN_BATCH,
+         seq=DENSE_TRAIN_SEQ, mesh="1x1 NCCL", **out,
+         peak_factor=PEAK_FACTOR, card=smi)
+    if not np.isfinite(loss):
+        raise AssertionError(f"the counted step's loss {loss}")
+    if step_ms < bound_ms:
+        raise AssertionError(f"the step took {step_ms} ms, under its "
+                             f"roofline bound {bound_ms} ms")
+    if not 1 / PEAK_FACTOR <= out["peak_ratio"] <= PEAK_FACTOR:
+        raise AssertionError(f"counted peak {counted.peak_bytes} against "
+                             f"torch's {torch_peak}")
+    return out
+
+
+def roofline_autotune_phase(dev, smi: str) -> dict:
+    """(c) ``launch.train.main --autotune`` on the card (the world of one
+    NCCL rank that main() keeps): the strategies counted on meta
+    arguments on the launcher's 1 x 1 mesh and ranked by the card's
+    roofline, the pick trained for AUTOTUNE_STEPS steps, every loss
+    finite."""
+    import numpy as np
+    from repro_torch.launch.train import main as train_main
+
+    t0 = time.perf_counter()
+    out = train_main(["--arch", AUTOTUNE_ARCH, "--autotune", "--steps",
+                      str(AUTOTUNE_STEPS), "--batch", str(AUTOTUNE_BATCH),
+                      "--seq-len", str(AUTOTUNE_SEQ), "--seed", "0",
+                      "--device", str(dev)])
+    seconds = time.perf_counter() - t0
+    tuned, losses = out["autotune"], out["losses"]
+    got = {"pick": tuned.best, "ranked": tuned.ranked,
+           "strategy": out["strategy"], "losses": losses,
+           "autotune_s": tuned.lower_seconds + tuned.predict_seconds,
+           "seconds": seconds}
+    emit("roofline_autotune", arch=AUTOTUNE_ARCH, batch=AUTOTUNE_BATCH,
+         seq=AUTOTUNE_SEQ, **got, card=smi)
+    if (out["strategy"] != tuned.best or len(losses) != AUTOTUNE_STEPS
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"autotune trained {out['strategy']!r} (picked "
+                             f"{tuned.best!r}), losses {losses}")
+    return got
+
+
+@contextlib.contextmanager
+def dryrun_cell():
+    """(d) ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELL in a
+    subprocess off the card (meta tensors on a fake process group), for
+    the block's length: yields (process, start time); the process is
+    killed at the end of the block if it still runs."""
+    import os
+    arch, shape, _, strategy = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--strategy", strategy], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        yield proc, time.perf_counter()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def roofline_dryrun_phase(started: tuple, smi: str) -> dict:
+    """(d) The dry-run cell's record: status ok, its report's row and its
+    seconds."""
+    proc, t0 = started
+    log, _ = proc.communicate(timeout=max(
+        1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+    seconds = time.perf_counter() - t0
+    from repro_torch.launch.dryrun import ARTIFACTS
+    from repro_torch.launch.roofline import RooflineReport
+    path = ARTIFACTS / ("__".join(DRYRUN_CELL) + ".json")
+    if proc.returncode != 0 or not path.exists():
+        raise AssertionError(f"the dry-run cell exited {proc.returncode}:\n"
+                             f"{log[-4000:]}")
+    rec = json.loads(path.read_text())
+    if rec.get("status") != "ok":
+        raise AssertionError(f"the dry-run cell's record: {rec}")
+    rep = RooflineReport(**rec["report"])
+    out = {"tag": rec["tag"], "status": rec["status"], "row": rep.row(),
+           "counting_s": rec["lower_s"], "seconds": seconds,
+           "hlo_flops": rep.hlo_flops, "xla_flops": rep.xla_flops,
+           "collective_bytes": rep.collective_bytes,
+           "peak_bytes": rep.peak_bytes, "features": rec["features"]}
+    emit("roofline_dryrun", **out, card=smi)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this run needs one",
               file=sys.stderr)
         return 2
+    # the dry-run cell (roofline (d)) runs on the host from the start, so
+    # that it is done before the LM phases are
+    with dryrun_cell() as dry_started:
+        return run(dry_started)
+
+
+def run(dry_started) -> int:
+    """Every phase; ``dry_started`` is the dry-run cell's subprocess."""
+    import torch
     sys.path.insert(0, str(REPO / "src"))
     import numpy as np
 
@@ -2838,6 +3075,9 @@ def main() -> int:
     if not all(found.values()):
         raise AssertionError(f"bf16 kernels without tensor-core "
                              f"instructions: {found}")
+
+    # ------------------------------------------------- roofline (a)
+    calibration = roofline_calibration_phase(dev, smi)
 
     # --------------------------------------------------------------- fit
     t0 = time.perf_counter()
@@ -3083,12 +3323,23 @@ def main() -> int:
         dense = lm_dense_train_phase(dev, smi)
         mesh_parity_phase(dev, dense, smi)
         dp_compressed_phase(dev, smi)
+        autotuned = roofline_autotune_phase(dev, smi)
         dist.destroy_process_group()
         lm_dense_train_f32_phase(dev)
         families = lm_families_phase(dev, smi)
         families_mesh = lm_families_mesh_phase(dev, smi)
+        dryrun = roofline_dryrun_phase(dry_started, smi)
         t0 = time.perf_counter()
         cv = cv_future.result()
+    emit("roofline", calibration={k: calibration[k]["roofline_frac"]
+                                  for k in ("matmul", "clone")},
+         step={k: dense["roofline"][k] for k in (
+             "row", "useful_ratio", "counted_flops", "model_flops",
+             "bound_ms", "step_ms", "counted_peak_bytes",
+             "torch_peak_bytes")},
+         autotune={k: autotuned[k] for k in ("pick", "ranked")},
+         dryrun={k: dryrun[k] for k in ("status", "row", "seconds")},
+         card=smi)
     emit("ground_truth_cv", rows=cv[truth["device"]]["rows"],
          grid=CV_GRID, config=CV_CONFIG, waited_s=time.perf_counter() - t0,
          results=cv, card=smi)

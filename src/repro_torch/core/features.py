@@ -506,6 +506,45 @@ def extract_from_program(ep, launch: LaunchConfig | None = None
     if user_outputs:
         res_bytes = float(_bytes(_val(nodes[user_outputs[0]])))
 
+    return _vector(t, args_bytes, small_args, res_bytes, launch)
+
+
+def trace_graph(fn, *args) -> torch.fx.GraphModule:
+    """``fn`` traced on ``args`` (meta tensors) by ``make_fx`` into a core
+    ATen graph for ``extract_from_graph``: unlike ``torch.export`` it
+    follows ``torch.autograd.grad`` (a training step). One fake-tensor
+    mode traces it (tracing the meta tensors themselves converts each
+    node's value anew, twice the time)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    return make_fx(fn, decomposition_table=_decompositions(),
+                   tracing_mode="fake")(*args)
+
+
+def extract_from_graph(gm: torch.fx.GraphModule,
+                       launch: LaunchConfig | None = None) -> FeatureVector:
+    """Features of a ``trace_graph`` graph: its placeholders are the user
+    inputs and its first output the result, as for a program."""
+    from torch.utils._pytree import tree_leaves
+
+    launch = launch or LaunchConfig()
+    t = _walk(gm)
+    args_bytes = small_args = res_bytes = 0.0
+    for node in gm.graph.nodes:
+        v = _val(node)
+        if node.op == "placeholder" and isinstance(v, torch.Tensor):
+            args_bytes += _bytes(v)
+            if _bytes(v) <= 256:
+                small_args += _bytes(v)
+        elif node.op == "output":
+            outs = _tensors([_val(a) for a in tree_leaves(node.args[0])])
+            res_bytes = float(_bytes(outs[0])) if outs else 0.0
+    return _vector(t, args_bytes, small_args, res_bytes, launch)
+
+
+def _vector(t: OpTally, args_bytes: float, small_args: float,
+            res_bytes: float, launch: LaunchConfig) -> FeatureVector:
+    """The 12 features and the aux counts of a walked tally."""
     global_vol = args_bytes + res_bytes + t.global_vol
     param_vol = small_args + t.param_vol
     arith = t.arith

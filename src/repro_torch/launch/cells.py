@@ -5,6 +5,8 @@ tensors on the ``meta`` device; the placements are ``tree_shardings``'s.
 No import-time side effects."""
 from __future__ import annotations
 
+from functools import partial
+
 
 def cell_fns(model, shape, strategy, mesh, opt_cfg=None):
     """Returns (fn, args on the meta device, in placements, out placements,
@@ -46,6 +48,17 @@ def cell_fns(model, shape, strategy, mesh, opt_cfg=None):
     if shape.kind == "prefill":
         return (model.prefill, (params_meta, batch_meta),
                 (params_pl, batch_pl), (None, cache_pl), ())
-    # decode: one new token against a seq_len cache
-    return (model.decode, (params_meta, batch_meta, cache_meta),
+    # decode: one new token against a seq_len cache, at its last position
+    return (partial(_decode_at, model.decode, shape.seq_len - 1),
+            (params_meta, batch_meta, cache_meta),
             (params_pl, batch_pl, cache_pl), (None, cache_pl), (2,))
+
+
+def _decode_at(decode, pos: int, params, batch, cache):
+    """``decode`` of the token at ``pos`` (the VLM's M-RoPE delta 0): a
+    position on the meta device has no value to read, and the step's work
+    is the same at every position (the reference's is a traced scalar)."""
+    fixed = {"pos": pos}
+    if "mrope_delta" in batch:
+        fixed["mrope_delta"] = 0
+    return decode(params, {**batch, **fixed}, cache)

@@ -14,8 +14,10 @@ beside the tokens.
 
 Every family trains on a ("data", "model") DeviceMesh over the world
 (``make_host_mesh``; a world of one NCCL rank on one card, of one gloo
-rank on the host), under ``--strategy``. ``--autotune`` raises (ROADMAP
-item 10). Multi-rank:
+rank on the host), under ``--strategy``; ``--autotune`` counts the step
+under each of ``2d``, ``tp`` and ``zero3`` on that mesh (meta arguments,
+``core/autotune.py``) and trains under the one the roofline ranks first.
+Multi-rank:
 
   torchrun --nproc-per-node N -m repro_torch.launch.train --model-axis M
 """
@@ -26,7 +28,8 @@ import argparse
 
 def main(argv=None) -> dict:
     """Train as the flags say; returns ``run_training``'s result, with
-    "mesh" ((names, shape)) and "backend" (the process group's)."""
+    "mesh" ((names, shape)), "backend" (the process group's), "strategy"
+    and, under ``--autotune``, "autotune" (its ``AutotuneResult``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true",
@@ -44,10 +47,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-
-    if args.autotune:
-        raise NotImplementedError("--autotune needs the cost model of "
-                                  "ROADMAP item 10, not ported yet")
 
     from dataclasses import replace
 
@@ -71,12 +70,23 @@ def main(argv=None) -> dict:
     try:
         mesh = make_host_mesh(args.model_axis, args.device)
         first = dist.get_rank() == 0          # the rank that reports
+        strategy, tuned = args.strategy, None
+        if args.autotune:
+            from ..configs.base import ShapeConfig
+            from ..core.autotune import autotune_strategy
+            tuned = autotune_strategy(
+                model, ShapeConfig("tune", args.seq_len, args.batch,
+                                   "train"), mesh)
+            strategy = tuned.best
+            if first:
+                print(f"autotune picked strategy {strategy!r} "
+                      f"(predicted {tuned.ranked[0][1]*1e3:.2f} ms/step)")
         out = run_training(
             model,
             TrainLoopConfig(steps=args.steps, batch=args.batch,
                             seq_len=args.seq_len, checkpoint_dir=args.ckpt,
                             checkpoint_every=args.ckpt_every, seed=args.seed,
-                            strategy=args.strategy,
+                            strategy=strategy,
                             microbatches=args.microbatches),
             opt_cfg=OptConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 5)),
@@ -84,6 +94,9 @@ def main(argv=None) -> dict:
             log_fn=print if first else (lambda *_: None))
         out["mesh"] = (tuple(mesh.mesh_dim_names), tuple(mesh.shape))
         out["backend"] = dist.get_backend()
+        out["strategy"] = strategy
+        if tuned is not None:
+            out["autotune"] = tuned
     finally:
         if started:
             dist.destroy_process_group()

@@ -146,7 +146,7 @@ def _attend_core(cfg, q, k, v, cos, sin):
     return _sdpa(q, k, v, causal=True)
 
 
-def _core_on_shards(core, q, k, v, *tables):
+def _core_on_shards(core, q, k, v, *tables, n_out: int = 1):
     """(``core`` as a ``local_map`` over the mesh, its DTensor arguments).
     The kernels launch on ``data_ptr``, so no DTensor may reach them: each
     rank runs ``core`` on its shards, the reference's ``shard_map``. The
@@ -155,7 +155,7 @@ def _core_on_shards(core, q, k, v, *tables):
     own KV head); heads (or ``head_dim``, the fallback) sharded any other
     way are gathered first: attention cannot run on a ``head_dim`` shard.
     The ``tables`` (rotary cos and sin, (B, S, ...)) follow the batch
-    sharding."""
+    sharding; ``core`` returns ``n_out`` tensors shaped as q or k."""
     mesh = q.device_mesh
     qkv_pl = []
     for a, b in zip(q.placements, k.placements):
@@ -167,7 +167,8 @@ def _core_on_shards(core, q, k, v, *tables):
     q, k, v = (t.redistribute(mesh, qkv_pl) for t in (q, k, v))
     tables = tuple(on_mesh(t, mesh).redistribute(mesh, rope_pl)
                    for t in tables)
-    fn = local_map(core, out_placements=qkv_pl,
+    fn = local_map(core,
+                   out_placements=qkv_pl if n_out == 1 else (qkv_pl,) * n_out,
                    in_placements=(qkv_pl,) * 3 + (rope_pl,) * len(tables),
                    device_mesh=mesh)
     return fn, (q, k, v, *tables)
@@ -185,28 +186,116 @@ def attend_train(cfg, p, x, cos, sin):
     return constrain(out, ("act_batch", "act_seq", "act_embed"))
 
 
-def attend_prefill(cfg, p, x, cos, sin):
-    """Returns (out, (k, v)): the K/V of these S positions, in the
-    activation dtype."""
-    q, k, v = _qkv(cfg, p, x)
+def _prefill_core(q, k, v, cos, sin):
+    """Rotary embedding, then the plain causal ``_sdpa``; returns (out, the
+    rotated k)."""
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    o = _sdpa(q, k, v, causal=True)
+    return _sdpa(q, k, v, causal=True), k
+
+
+def attend_prefill(cfg, p, x, cos, sin):
+    """Returns (out, (k, v)): the K/V of these S positions, in the
+    activation dtype; on a mesh the attention runs on each rank's shards
+    (``_core_on_shards``)."""
+    q, k, v = _qkv(cfg, p, x)
+    core, args = _prefill_core, (q, k, v, cos, sin)
+    if isinstance(q, DTensor):
+        core, args = _core_on_shards(core, *args, n_out=2)
+    o, k = core(*args)
     return _out(o, p["wo"]), (k, v)
 
 
 def attend_decode(cfg, p, x, cos, sin, cache, pos: int):
     """x (B,1,d); cache (k, v) each (B,Smax,Hkv,Dh); pos: the position of
     this token. Writes its K/V into the cache at ``pos`` IN PLACE (the
-    reference returns an updated copy) and returns (out, cache)."""
+    reference returns an updated copy) and returns (out, cache); on a mesh
+    on each rank's shards of the cache (``_decode_on_shards``)."""
     k_cache, v_cache = cache
     q, k, v = _qkv(cfg, p, x)
+    if isinstance(k_cache, DTensor):
+        return _out(_decode_on_shards(q, k, v, k_cache, v_cache, cos, sin,
+                                      pos), p["wo"]), cache
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
     o = _sdpa(q, k_cache, v_cache, causal=False, kv_valid_len=pos + 1)
     return _out(o, p["wo"]), (k_cache, v_cache)
+
+
+def _decode_local(pos, start, seq_groups, q, k, v, k_cache, v_cache, cos,
+                  sin):
+    """One rank's decode step against its shard of the KV cache, which
+    holds positions ``start`` onwards: the rank that holds ``pos`` writes
+    the token's K/V there in place. Without ``seq_groups`` this is the
+    one-device step; with them (the cache's sequence sharded over those
+    process groups) each rank attends over its own positions and the
+    softmax's maximum, sum and weighted values are all-reduced over the
+    groups."""
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    n = k_cache.shape[1]
+    if start <= pos < start + n:
+        k_cache[:, pos - start] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, pos - start] = v[:, 0].to(v_cache.dtype)
+    if not seq_groups:
+        return _sdpa(q, k_cache, v_cache, causal=False, kv_valid_len=pos + 1)
+    import torch.distributed._functional_collectives as funcol
+
+    def reduce(t, op):
+        for g in seq_groups:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+        return t
+    B, _, H, Dh = q.shape
+    Hkv = k_cache.shape[2]
+    scale = float(torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32))
+    qg = q.reshape(B, 1, Hkv, H // Hkv, Dh).to(k_cache.dtype)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", f32(qg), f32(k_cache)) * scale
+    ki = torch.arange(start, start + n, device=s.device)
+    s = torch.where(ki <= pos, s, -1e30)
+    m = reduce(s.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(s - m)
+    total = reduce(e.sum(dim=-1, keepdim=True), "sum")
+    o = reduce(torch.einsum("bhgqk,bkhd->bqhgd", f32(e.to(v_cache.dtype)),
+                            f32(v_cache)), "sum")
+    o = o / total.permute(0, 3, 1, 2, 4)
+    return o.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def _decode_on_shards(q, k, v, k_cache, v_cache, cos, sin, pos: int):
+    """``_decode_local`` on each rank's shards. The cache keeps its own
+    placements, so each rank writes into its own shard in place; q, k and
+    v follow the cache's batch and KV-head shards and are whole wherever
+    it shards the sequence; the rotary tables follow the batch."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = k_cache.device_mesh
+    qkv_pl, seq_groups = [], []
+    for i, a in enumerate(k_cache.placements):
+        if a in (Shard(0), Shard(2)):
+            qkv_pl.append(a)
+        elif a == Shard(1):
+            qkv_pl.append(Replicate())
+            seq_groups.append(mesh.get_group(i))
+        elif a == Replicate():
+            qkv_pl.append(a)
+        else:
+            raise ValueError(f"a decode step on a KV cache placed "
+                             f"{tuple(k_cache.placements)}")
+    rope_pl = [a if a == Shard(0) else Replicate() for a in qkv_pl]
+    _, offset = compute_local_shape_and_global_offset(
+        k_cache.shape, mesh, k_cache.placements)
+    v_cache = v_cache.redistribute(mesh, k_cache.placements)
+    fn = local_map(partial(_decode_local, pos, offset[1], seq_groups),
+                   out_placements=qkv_pl,
+                   in_placements=(qkv_pl,) * 3
+                   + (tuple(k_cache.placements),) * 2 + (rope_pl,) * 2,
+                   device_mesh=mesh)
+    return fn(*(t.redistribute(mesh, qkv_pl) for t in (q, k, v)), k_cache,
+              v_cache, *(on_mesh(t, mesh).redistribute(mesh, rope_pl)
+                         for t in (cos, sin)))
 
 
 def attend_full(q, k, v):

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..sharding.context import on_mesh
+from ..sharding.context import embedding_rows, on_mesh
 from .attention import (_out, _qkv, attend_cross, attend_decode,
                         attend_full, attend_prefill, attend_train,
                         attn_specs, cross_kv, kv_cache_shape)
@@ -165,7 +165,7 @@ def _stack_pairs(pairs) -> tuple:
 
 def _embed(cfg, params, tokens, offset: int = 0):
     dt = getattr(torch, cfg.dtype)
-    x = params["embed"][tokens.long()].to(dt)
+    x = embedding_rows(params["embed"], tokens).to(dt)
     return x + _like(sinusoid(x.shape[1], cfg.d_model, dt, offset=offset,
                               device=x.device)[None], x)
 

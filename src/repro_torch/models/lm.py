@@ -31,7 +31,8 @@ import math
 
 import torch
 
-from ..sharding.context import constrain, constrain_tree, current_ctx
+from ..sharding.context import (constrain, constrain_tree, current_ctx,
+                                embedding_rows)
 from .attention import (attend_decode, attend_prefill, attend_train,
                         attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, KV_HEADS, VOCAB, ParamSpec,
@@ -181,7 +182,7 @@ def _embed_inputs(cfg, params, batch_dict):
     """Token embeddings, with the projected patches in front for the VLM;
     returns (x (B, s_img + S, d), s_img)."""
     dt = getattr(torch, cfg.dtype)
-    x = params["embed"][batch_dict["tokens"].long()].to(dt)
+    x = embedding_rows(params["embed"], batch_dict["tokens"]).to(dt)
     s_img = 0
     if cfg.family == "vlm" and "patch_embeds" in batch_dict:
         pp = params["patch_proj"]
@@ -240,7 +241,7 @@ def lm_decode(cfg, params, batch_dict, caches):
     is pos + mrope_delta). Writes the token's K/V into ``caches`` in place;
     returns (logits (B, 1, V), caches)."""
     dt = getattr(torch, cfg.dtype)
-    x = params["embed"][batch_dict["tokens"].long()].to(dt)
+    x = embedding_rows(params["embed"], batch_dict["tokens"]).to(dt)
     B = x.shape[0]
     pos = int(batch_dict["pos"])
     if cfg.family == "vlm":

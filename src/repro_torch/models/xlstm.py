@@ -16,8 +16,10 @@ in a Python loop (the reference's ``lax.scan`` over time).
 On a mesh both recurrences run on each rank's shards (``local_map``): the
 batch shard, and the heads over a mesh dimension that divides them;
 anything else is gathered first. No loop steps over DTensors: DTensor's
-dispatch on each op of each of S steps would dwarf the work. They start
-from a zero state there; a decode step on a mesh raises.
+dispatch on each op of each of S steps would dwarf the work. A carried
+state (a prefill's, for decode) goes onto the same batch and head shards
+and enters the ``local_map`` beside the gates; without one each rank
+starts from zeros. A decode step runs the O(1) recurrence on the shards.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from ..sharding.context import product_on_shards
+from ..sharding.context import product_on_shards, reduced
 from .common import (EMBED, HEAD_DIM, HEADS, INNER, ParamSpec, f32, rms_norm,
                      silu)
 
@@ -130,31 +132,56 @@ def _head_shards(t, dim: int) -> list:
     return out
 
 
-def _scan_local(chunk: int, q, k, v, logi, f_pre):
-    """``mlstm_chunk_scan`` of one rank's shards from a zero state, the
-    forget gates given before their log-sigmoid; y with its heads
-    flattened, (B, S, H * Dh) (DTensor cannot view a gradient sharded over
-    them back into heads that the mesh does not divide)."""
+def _mlstm_step(q, k, v, logi, logf, state):
+    """The O(1) recurrence of one position: q/k/v (B,1,H,Dh), logi/logf
+    (B,1,H) f32, state (C, n, m). Returns (y (B,1,H,Dh), new state)."""
+    C, n, m = state
+    scale = _f32_scale(q.shape[-1])
+    li, lf = logi[:, 0], logf[:, 0]                             # (B,H)
+    m_new = torch.maximum(lf + m, li)
+    f_w = torch.exp(lf + m - m_new)
+    i_w = torch.exp(li - m_new)
+    C = f_w[:, :, None, None] * C + i_w[:, :, None, None] * torch.einsum(
+        "bhd,bhe->bhde", k[:, 0], v[:, 0])
+    n = f_w[:, :, None] * n + i_w[:, :, None] * k[:, 0]
+    qs = q[:, 0] * scale
+    num = torch.einsum("bhd,bhde->bhe", qs, C)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", qs, n).abs(),
+                        torch.exp(-m_new))
+    return (num / den[..., None].clamp_min(1e-30))[:, None], (C, n, m_new)
+
+
+def _cell_local(chunk, q, k, v, logi, f_pre, *state):
+    """The mLSTM on plain tensors (one device's, or one rank's shards): the
+    chunk scan, or the decode step when ``chunk`` is None, from ``state``
+    or else from zeros; the forget gates come before their log-sigmoid. y
+    has its heads flattened, (B, S, H * Dh) (DTensor cannot view a
+    gradient sharded over them back into heads that the mesh does not
+    divide)."""
     B, S, H, Dh = q.shape
-    zeros = (q.new_zeros((B, H, Dh, Dh)), q.new_zeros((B, H, Dh)),
-             q.new_zeros((B, H)))
-    y, state = mlstm_chunk_scan(q, k, v, logi, F.logsigmoid(f_pre), zeros,
-                                chunk)
+    state = state or (q.new_zeros((B, H, Dh, Dh)), q.new_zeros((B, H, Dh)),
+                      q.new_zeros((B, H)))
+    logf = F.logsigmoid(f_pre)
+    if chunk is None:
+        y, state = _mlstm_step(q, k, v, logi, logf, state)
+    else:
+        y, state = mlstm_chunk_scan(q, k, v, logi, logf, state, chunk)
     return y.reshape(B, S, H * Dh), state
 
 
-def _scan_on_shards(q, k, v, logi, f_pre, state, chunk: int):
-    """``_scan_local`` on each rank's shards."""
-    if state is not None:
-        raise NotImplementedError("a carried mLSTM state on a mesh (mesh "
-                                  "training starts from zeros)")
+def _cell_on_shards(q, k, v, logi, f_pre, state, chunk):
+    """``_cell_local`` on each rank's shards; a carried (C, n, m) goes onto
+    the gates' batch and head shards."""
     mesh = q.device_mesh
     pl = _head_shards(q, 2)
     st = [Shard(1) if a == Shard(2) else a for a in pl]
-    fn = local_map(partial(_scan_local, chunk),
+    state = () if state is None else tuple(state)
+    fn = local_map(partial(_cell_local, chunk),
                    out_placements=(pl, st, st, st),
-                   in_placements=(pl,) * 5, device_mesh=mesh)
-    return fn(*(t.redistribute(mesh, pl) for t in (q, k, v, logi, f_pre)))
+                   in_placements=(pl,) * 5 + (st,) * len(state),
+                   device_mesh=mesh)
+    return fn(*(t.redistribute(mesh, pl) for t in (q, k, v, logi, f_pre)),
+              *(t.redistribute(mesh, st) for t in state))
 
 
 def mlstm_init_state(cfg, batch: int, device=None, dtype=torch.float32):
@@ -177,49 +204,27 @@ def _heads(h, w):
 
 def mlstm_apply(cfg, p, x, state=None, *, decode: bool = False):
     """x (B,S,d). Returns (out, state); ``decode`` (S = 1) takes the O(1)
-    recurrence, otherwise the chunk scan (chunks of min(64, max(8, S))).
-    On a mesh the chunk scan runs on the shards from a zero state; a decode
-    step there raises."""
+    recurrence, otherwise the chunk scan (chunks of min(64, max(8, S))),
+    on a mesh on each rank's shards."""
     B, S, d = x.shape
     if decode and S != 1:
         raise ValueError(f"a decode step takes one token, got {S}")
-    if decode and isinstance(x, DTensor):
-        raise NotImplementedError("an mLSTM decode step on a mesh")
     dt = x.dtype
     h = x @ p["w_up"].to(dt)                                    # (B,S,up)
     gate = silu(x @ p["w_gate"].to(dt))
     q, k, v = (f32(_heads(h, p[w])) for w in ("wq", "wk", "wv"))
     hf = f32(h)
-    logi = hf @ f32(p["w_i"]) + f32(p["b_i"])
-    f_pre = hf @ f32(p["w_f"]) + f32(p["b_f"])
+    logi = reduced(hf @ f32(p["w_i"])) + f32(p["b_i"])
+    f_pre = reduced(hf @ f32(p["w_f"])) + f32(p["b_f"])
+    chunk = None if decode else min(64, max(8, S))
 
     if isinstance(q, DTensor):
         # the log-sigmoid runs on the shards (DTensor has no rule for its
         # backward)
-        y, state = _scan_on_shards(q, k, v, logi, f_pre, state,
-                                   chunk=min(64, max(8, S)))
-    elif decode:
-        logf = F.logsigmoid(f_pre)
-        C, n, m = state or mlstm_init_state(cfg, B, x.device, q.dtype)
-        scale = _f32_scale(q.shape[-1])
-        li, lf = logi[:, 0], logf[:, 0]                         # (B,H)
-        m_new = torch.maximum(lf + m, li)
-        f_w = torch.exp(lf + m - m_new)
-        i_w = torch.exp(li - m_new)
-        C = f_w[:, :, None, None] * C + i_w[:, :, None, None] * torch.einsum(
-            "bhd,bhe->bhde", k[:, 0], v[:, 0])
-        n = f_w[:, :, None] * n + i_w[:, :, None] * k[:, 0]
-        qs = q[:, 0] * scale
-        num = torch.einsum("bhd,bhde->bhe", qs, C)
-        den = torch.maximum(torch.einsum("bhd,bhd->bh", qs, n).abs(),
-                            torch.exp(-m_new))
-        y = (num / den[..., None].clamp_min(1e-30))[:, None]   # (B,1,H,Dh)
-        state = (C, n, m_new)
+        y, state = _cell_on_shards(q, k, v, logi, f_pre, state, chunk)
     else:
-        y, state = mlstm_chunk_scan(
-            q, k, v, logi, F.logsigmoid(f_pre),
-            state or mlstm_init_state(cfg, B, x.device, q.dtype),
-            chunk=min(64, max(8, S)))
+        y, state = _cell_local(chunk, q, k, v, logi, f_pre, *(
+            state or mlstm_init_state(cfg, B, x.device, q.dtype)))
 
     y = y.reshape(B, S, -1).to(dt)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps) * gate
@@ -285,20 +290,20 @@ def _slstm_steps(gates, r, b, state):
     return torch.stack(hs, dim=1).flatten(2), state
 
 
-def _steps_from_zeros(gates, r, b):
-    """``_slstm_steps`` of one rank's shards from a zero state."""
+def _steps_local(gates, r, b, *state):
+    """``_slstm_steps`` of one rank's shards from ``state``, or else from
+    zeros."""
     B, _, _, H, Dh = gates.shape
-    return _slstm_steps(gates, r, b, tuple(
-        gates.new_zeros((B, H, Dh), dtype=r.dtype) for _ in range(4)))
+    state = state or tuple(gates.new_zeros((B, H, Dh), dtype=r.dtype)
+                           for _ in range(4))
+    return _slstm_steps(gates, r, b, state)
 
 
 def _steps_on_shards(gates, r, b, state):
-    """``_steps_from_zeros`` on each rank's shards: the batch and the heads
+    """``_steps_local`` on each rank's shards: the batch and the heads
     (gates' dimension 3); r and b follow the heads, and their gradients
-    are partial sums over the batch shards."""
-    if state is not None:
-        raise NotImplementedError("a carried sLSTM state on a mesh (mesh "
-                                  "training starts from zeros)")
+    are partial sums over the batch shards; a carried (c, n, h, m) goes
+    onto the gates' batch and head shards."""
     mesh = gates.device_mesh
     g_pl = _head_shards(gates, 3)
     heads = [a == Shard(3) for a in g_pl]
@@ -309,23 +314,24 @@ def _steps_on_shards(gates, r, b, state):
     b_grad = [p if h else g for h, p, g in zip(heads, b_pl, grad)]
     y_pl = [Shard(2) if h else a for h, a in zip(heads, g_pl)]
     st = [Shard(1) if h else a for h, a in zip(heads, g_pl)]
-    fn = local_map(_steps_from_zeros, out_placements=(y_pl,) + (st,) * 4,
-                   in_placements=(g_pl, r_pl, b_pl),
-                   in_grad_placements=(g_pl, r_grad, b_grad),
+    state = () if state is None else tuple(state)
+    carried = (st,) * len(state)
+    fn = local_map(_steps_local, out_placements=(y_pl,) + (st,) * 4,
+                   in_placements=(g_pl, r_pl, b_pl) + carried,
+                   in_grad_placements=(g_pl, r_grad, b_grad) + carried,
                    device_mesh=mesh)
     return fn(gates.redistribute(mesh, g_pl), r.redistribute(mesh, r_pl),
-              b.redistribute(mesh, b_pl))
+              b.redistribute(mesh, b_pl),
+              *(t.redistribute(mesh, st) for t in state))
 
 
 def slstm_apply(cfg, p, x, state=None, *, decode: bool = False):
     """x (B,S,d). Returns (out, state): the cell stepped over the S
-    positions one by one (one step when ``decode``). On a mesh the steps
-    run on the shards from a zero state; a decode step there raises."""
+    positions one by one (one step when ``decode``); on a mesh on each
+    rank's shards."""
     B, S, d = x.shape
     if decode and S != 1:
         raise ValueError(f"a decode step takes one token, got {S}")
-    if decode and isinstance(x, DTensor):
-        raise NotImplementedError("an sLSTM decode step on a mesh")
     dt = x.dtype
     gates = _gates(x, p["w_in"])
     r, b = f32(p["r"]), f32(p["b"])

@@ -12,8 +12,9 @@ updates them IN PLACE: their size does not depend on the sequence length
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from ..sharding.context import constrain
+from ..sharding.context import constrain, embedding_rows
 from .common import (BATCH, EMBED, VOCAB, ParamSpec, cross_entropy_loss,
                      remat, rms_norm, stack_specs, unstack)
 from .xlstm import mlstm_apply, mlstm_specs, slstm_apply, slstm_specs
@@ -57,6 +58,15 @@ def _train_group(cfg, m_layers, sp, x):
     return x + out
 
 
+def _write(dst: tuple, src: tuple) -> None:
+    """Copy each state of ``src`` into the cache slice of ``dst`` in place;
+    on a mesh each takes its slice's placements first."""
+    for d, s in zip(dst, src):
+        if isinstance(s, DTensor):
+            s = s.redistribute(s.device_mesh, d.placements)
+        d.copy_(s)
+
+
 def _forward(cfg, params, x, mode, states=None):
     """Training returns (x, None). Prefill returns (x, fresh states
     {"m": (C, n, m) each (G, M, B, ...), "s": (c, n, h, m) each (G, B,
@@ -76,8 +86,7 @@ def _forward(cfg, params, x, mode, states=None):
             out, new = mlstm_apply(cfg, lp["cell"], h, state=st, decode=decode)
             x = x + out
             if decode:
-                for dst, src in zip(st, new):
-                    dst.copy_(src)
+                _write(st, new)
             else:
                 m_out.append(new)
         st = tuple(a[g] for a in states["s"]) if decode else None
@@ -85,8 +94,7 @@ def _forward(cfg, params, x, mode, states=None):
         out, new = slstm_apply(cfg, sp["cell"], h, state=st, decode=decode)
         x = x + out
         if decode:
-            for dst, src in zip(st, new):
-                dst.copy_(src)
+            _write(st, new)
         else:
             s_out.append(new)
     if decode:
@@ -98,7 +106,7 @@ def _forward(cfg, params, x, mode, states=None):
 
 
 def _embed(cfg, params, tokens):
-    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    x = embedding_rows(params["embed"], tokens).to(getattr(torch, cfg.dtype))
     return constrain(x, ("act_batch", "act_seq", "act_embed"))
 
 

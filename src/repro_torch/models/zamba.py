@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..sharding.context import constrain
+from ..sharding.context import constrain, embedding_rows
 from .attention import (attend_decode, attend_prefill, attend_train,
                         attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, HEADS, KV_HEADS, LORA, VOCAB,
@@ -162,7 +162,7 @@ def _forward(cfg, params, x, mode, caches=None, pos=None):
 
 
 def _embed(cfg, params, tokens):
-    x = params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    x = embedding_rows(params["embed"], tokens).to(getattr(torch, cfg.dtype))
     return constrain(x, ("act_batch", "act_seq", "act_embed"))
 
 

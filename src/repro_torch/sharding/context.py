@@ -15,6 +15,9 @@ Tensors the model makes itself (rotary tables, masks, position ids) are
 plain tensors; where they meet a DTensor, ``on_mesh`` makes them
 replicated DTensors on its mesh (every rank made the same values).
 
+An embedding lookup on a DTensor table and its gradient run on local
+tensors (``embedding_rows``).
+
 A product that contracts heads with a weight sharded over (heads,
 head_dim) runs on each rank's shards (``product_on_shards``): DTensor
 cannot unflatten a sharded ``heads x head_dim`` dimension into a head
@@ -124,6 +127,19 @@ def on_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
                               run_check=False)
 
 
+def reduced(t):
+    """The DTensor ``t`` with its partial sums reduced (``Partial`` made
+    ``Replicate``); anything else itself. A partial product meets a
+    sharded bias this way under torch 2.11 too, whose DTensor cannot turn
+    the bias's shard into a partial sum ("redistribute from S(0) to
+    P(sum) not supported yet")."""
+    if not isinstance(t, DTensor) or not any(a.is_partial()
+                                             for a in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if a.is_partial()
+                                          else a for a in t.placements])
+
+
 def product_on_shards(fn, x, w, contract: int = 1):
     """``fn(x, w)``, a product contracting x's last ``contract`` dimensions
     with w's first ``contract`` ones, run by each rank on its shards of the
@@ -152,3 +168,44 @@ def product_on_shards(fn, x, w, contract: int = 1):
     fn = local_map(fn, out_placements=out_pl, in_placements=(x_pl, w_pl),
                    in_grad_placements=(x_grad, w_grad), device_mesh=mesh)
     return fn(x.redistribute(mesh, x_pl), w.redistribute(mesh, w_pl))
+
+
+def embedding_rows(table, tokens):
+    """``table[tokens]``: the rows of an embedding table (V, d) for integer
+    tokens of any shape. On a DTensor table the lookup and its gradient
+    run on local tensors (``_Rows``), as DTensor's own indexing runs them;
+    DTensor's rule for the indexing's backward (``index_put``) fails once
+    the tokens are sharded under torch 2.11 ("Shard dim -1 ... must be
+    normalized")."""
+    if not isinstance(table, DTensor):
+        return table[tokens.long()]
+    return _Rows.apply(table, on_mesh(tokens, table.device_mesh))
+
+
+class _Rows(torch.autograd.Function):
+    """Forward: every rank gathers the table and the tokens, looks up the
+    whole batch, and the rows take the tokens' placements. Backward: the
+    rows' gradient is gathered where it is sharded and kept a partial sum
+    where it is one, and each rank accumulates every token's rows into a
+    zero table in the tokens' order: the table's gradient, partial where
+    the rows' gradient was."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        mesh = table.device_mesh
+        whole = [Replicate()] * mesh.ndim
+        t = tokens.redistribute(mesh, whole).to_local().long()
+        ctx.save_for_backward(t)
+        ctx.shape = tuple(table.shape)
+        rows = table.redistribute(mesh, whole).to_local()[t]
+        return DTensor.from_local(rows, mesh, whole, run_check=False
+                                  ).redistribute(mesh, tokens.placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        t, = ctx.saved_tensors
+        mesh = grad.device_mesh
+        keep = [a if a.is_partial() else Replicate() for a in grad.placements]
+        g = grad.redistribute(mesh, keep).to_local()
+        table = g.new_zeros(ctx.shape).index_put_((t,), g, accumulate=True)
+        return DTensor.from_local(table, mesh, keep, run_check=False), None

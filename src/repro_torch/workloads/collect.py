@@ -35,6 +35,8 @@ from .suite import Workload, suite
 
 ARTIFACT = (Path(__file__).resolve().parents[3] / "artifacts"
             / "suite_dataset_torch.json")
+# the port's dry-run records (launch/dryrun.py)
+DRYRUN_DIR = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 
 
 @dataclass
@@ -168,14 +170,13 @@ def collect(workloads: list[Workload] | None = None, repeats: int = 10,
 def cells_dataset(dryrun_dir: Path | None = None, seed: int = 1,
                   repeats: int = 10) -> Dataset:
     """The 40-cell dry-run programs as predictor samples: their portable
-    features were extracted at lowering time (the reference's
-    launch/dryrun.py writes the records); here we attach simulated
-    per-device targets. These are the SECONDS-scale samples (train/prefill
-    steps of 0.1B..123B models) that extend the dataset's dynamic range to
-    the paper's ~8 orders of magnitude. A missing directory gives an empty
-    dataset."""
-    dryrun_dir = dryrun_dir or (
-        Path(__file__).resolve().parents[3] / "artifacts" / "dryrun")
+    features were extracted by the port's dry-run (``launch/dryrun.py``
+    writes the records to DRYRUN_DIR, never the reference's directory);
+    here we attach simulated per-device targets. These are the
+    SECONDS-scale samples (train/prefill steps of 0.1B..123B models) that
+    extend the dataset's dynamic range to the paper's ~8 orders of
+    magnitude. A missing directory gives an empty dataset."""
+    dryrun_dir = dryrun_dir or DRYRUN_DIR
     rng = np.random.default_rng(seed)
     ds = Dataset()
     for p in sorted(dryrun_dir.glob("*.json")):

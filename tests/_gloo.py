@@ -8,6 +8,7 @@ its name, so each test asserts its own part. This module imports neither
 jax nor the reference, so the ranks start quickly."""
 from __future__ import annotations
 
+import contextlib
 import pickle
 import time
 import traceback
@@ -144,6 +145,92 @@ def train_run(cfg, mesh, loop_kw: dict, ckpt: str | None = None,
             "params": _arrays(out["state"]["params"]),
             "dtensor": all(type(p).__name__ == "DTensor" for p in
                            _leaves(out["state"]["params"]))}
+
+
+def _whole(tree):
+    """A tree of (D)tensors (nested dicts, lists and tuples) as float64
+    numpy, each DTensor gathered whole."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_whole(v) for v in tree]
+    t = tree.full_tensor() if isinstance(tree, DTensor) else tree
+    return t.detach().double().numpy().copy()
+
+
+def _full(tree):
+    """A tree of (D)tensors with each DTensor gathered whole."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: _full(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_full(v) for v in tree)
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree
+
+
+# the serving runs' sizes: a prompt of SERVE_PROMPT tokens for each of
+# SERVE_BATCH rows, then SERVE_STEPS decode steps against a cache of
+# SERVE_PROMPT + SERVE_STEPS positions (even, so that a model axis of 2
+# shards the KV cache's sequence)
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 8, 4
+
+
+def serve_run(cfg, mesh, strategy: str = "2d", seed: int = 0) -> dict:
+    """A prefill of the family's batch at (SERVE_BATCH, SERVE_PROMPT),
+    then SERVE_STEPS decode steps of seeded tokens, on one device (``mesh``
+    None) or on ``mesh`` under ``strategy``: the parameters, the prompt
+    and each step's tokens placed by the rules; the prefill's caches
+    gathered, grown to their decode length (``place_prefill_caches``) and
+    placed as the decode cell places them (``cache_axes``). Returns every
+    logits array and the last caches, whole."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.serve import place_prefill_caches
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.context import activation_sharding
+    from repro_torch.sharding.rules import distribute_tree, tree_shardings
+
+    model = build_model(cfg)
+    params = model.init(seed, "cpu")
+    if cfg.dtype == "float64":
+        params = tree_map(lambda _, t: t.double(), params)
+    shape = ShapeConfig("serve", SERVE_PROMPT, SERVE_BATCH, "prefill")
+    batch = model.make_batch(shape, seed=seed, device="cpu")
+    start = SERVE_PROMPT + (batch["patch_embeds"].shape[1]
+                            if "patch_embeds" in batch else 0)
+    max_len = start + SERVE_STEPS
+    steps = np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (SERVE_STEPS, SERVE_BATCH, 1))
+
+    def place(tree, axes):
+        if mesh is None:
+            return tree
+        return distribute_tree(tree, mesh, tree_shardings(axes, mesh,
+                                                          strategy, tree))
+
+    scope = (activation_sharding(mesh, strategy) if mesh is not None
+             else contextlib.nullcontext())
+    params = place(params, model.param_axes())
+    batch = place(batch, model.input_axes(shape))
+    logits = []
+    with scope:
+        out, caches = model.prefill(params, batch)
+        logits.append(out)
+        caches = place(place_prefill_caches(model, _full(caches), max_len),
+                       model.cache_axes(SERVE_BATCH, max_len))
+        tok_axes = model.input_axes(ShapeConfig("step", max_len, SERVE_BATCH,
+                                                "decode"))["tokens"]
+        for i, tok in enumerate(steps):
+            step = {"tokens": place(torch.as_tensor(tok, dtype=torch.int32),
+                                    tok_axes), "pos": start + i}
+            if cfg.family == "vlm":
+                step["mrope_delta"] = 0
+            out, caches = model.decode(params, step, caches)
+            logits.append(out)
+    return {"logits": [_whole(t) for t in logits], "caches": _whole(caches)}
 
 
 def _by_path(tree, prefix=""):
@@ -487,10 +574,13 @@ def _record_drops():
     return seen
 
 
-def mesh_families(rank, world, out, checks, ckpts: dict, runs: dict):
+def mesh_families(rank, world, out, checks, ckpts: dict, runs: dict,
+                  serve: tuple = ()):
     """Reduced archs trained on a 2 x 2 mesh from the state in
     ``ckpts[name]``: ``runs[name]`` is (arch, config overrides, loop
-    overrides, strategies). The MoE's keep masks are recorded."""
+    overrides, strategies). The MoE's keep masks are recorded. Then each
+    reduced arch of ``serve`` served in float64 on the mesh under ``2d``
+    (``serve_run``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     drops = _record_drops()
@@ -507,3 +597,6 @@ def mesh_families(rank, world, out, checks, ckpts: dict, runs: dict):
                 got["keep"] = list(drops)
                 return got
             checks(f"{name}/{strategy}", run)
+    for arch in serve:
+        checks(f"serve/{arch}", lambda arch=arch: serve_run(
+            mesh_config(arch, dtype="float64"), mesh22))

@@ -10,13 +10,20 @@ op finds a sharding, at the widths the reduced configs cannot reach (they
 pick head counts that divide 2). It does not hold numbers; the gloo worlds
 do (tests/test_torch_mesh_train.py, tests/test_torch_mesh_families.py).
 
+The serving cells (``prefill_32k``, ``decode_32k``, ``long_500k``) run
+one prefill or decode step the same way (``run_serve_cell``). Before the
+repair of faults F2-F4 every one of them failed but xlstm-125m's prefill:
+the xLSTM refused a carried state on a mesh (F2), the attention's prefill
+and decode mixed plain rotary tables and masks into DTensor ops (F3), and
+a decode cell read its position from a meta tensor (F4).
+
 Cuts, all of work, none of width:
   * depth: 2 layers; xlstm-125m one group of 4 (3 mLSTM + 1 sLSTM),
     zamba2-2.7b one shared-block period (6 Mamba2 layers, one shared
     attention), whisper-medium 2 encoder + 2 decoder layers;
   * microbatches: at most 2 (each further one repeats the same ops);
   * xlstm-125m: 128 tokens a sequence instead of 4,096 (the batch stays
-    256): its sLSTM steps through the sequence one position at a time, and
+    256), and a prompt of 128 instead of 32,768 in ``prefill_32k``: its sLSTM steps through the sequence one position at a time, and
     meta tensors take some 170 us an op (a 4,096-step layer: about 20 s
     forward, 46 s backward); no placement depends on the length.
 
@@ -103,18 +110,26 @@ def run_cell(arch: str, mesh_shape: tuple, strategy: str) -> dict:
                 "out_pl": _placements(out_pl[0])}
 
 
-def run_decode_cell(arch: str, mesh_shape: tuple, strategy: str):
-    """The cut ``decode_32k`` cell of ``arch`` on a fake mesh: one decode
-    step on meta arguments placed by the cell; returns its outputs."""
+def run_serve_cell(arch: str, mesh_shape: tuple, strategy: str,
+                   shape_name: str = "decode_32k"):
+    """The cut serving cell ``shape_name`` (``prefill_32k``, ``decode_32k``
+    or ``long_500k``) of ``arch`` on a fake mesh: one prefill or decode
+    step on meta arguments placed by the cell (xlstm-125m's prompt cut to
+    XLSTM_SEQ tokens, as its training cells are); returns its outputs."""
     from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.cells import cell_fns
     from repro_torch.models.registry import build_model
     from repro_torch.sharding.context import activation_sharding
     from repro_torch.sharding.rules import distribute_tree
 
+    shape = SHAPES[shape_name]
+    if arch == "xlstm-125m" and shape.kind == "prefill":
+        shape = ShapeConfig(shape.name, XLSTM_SEQ, shape.global_batch,
+                            shape.kind)
     with fake_mesh(mesh_shape) as mesh:
-        fn, args, in_pl, _, _ = cell_fns(build_model(_cut(arch)),
-                                         SHAPES["decode_32k"], strategy, mesh)
+        fn, args, in_pl, _, _ = cell_fns(build_model(_cut(arch)), shape,
+                                         strategy, mesh)
         args = [distribute_tree(a, mesh, pl) for a, pl in zip(args, in_pl)]
         with activation_sharding(mesh, strategy):
             return fn(*args)

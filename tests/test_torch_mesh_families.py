@@ -27,6 +27,16 @@ trains under ``2d``, ``zero3`` and ``sp`` and matches the one-device run
 at rtol 1e-5, in float64 as ``_gloo.FALLBACK`` is (it raised on the mesh
 before the repair).
 
+Serving on the mesh (faults F2-F4): reduced xlstm-125m, smollm-360m,
+granite-moe-3b-a800m, qwen2-vl-7b, zamba2-2.7b and whisper-medium, in
+float64 under ``2d``, prefill a (4, 8) prompt and take 4 decode steps
+against a 12-position cache whose sequence the model axis shards
+(``_gloo.serve_run``): every logits array equals the one-device run's at
+rtol 1e-9 (plus 1e-9 of the largest), zamba2's at 1e-6, since its SSD
+scan computes in float32 whatever the model's dtype (its kernel's
+precision) and float32 products over a batch shard round apart from the
+whole batch's (7.5e-8 apart).
+
 MoE drops: reduced granite with 3 experts (the model axis does not divide
 them, so the dispatch buffer shards its capacity slots) and a capacity
 factor of 0.25 over 4 x 32 tokens drops tokens; the mesh drops the same
@@ -38,7 +48,8 @@ import jax
 import numpy as np
 import pytest
 
-from _gloo import ADAM_EPS, mesh_config, result, run_world, train_run
+from _gloo import (ADAM_EPS, mesh_config, result, run_world, serve_run,
+                   train_run)
 from _lm_parity import ref_params
 from repro.configs import ARCHS as R_ARCHS
 from repro.configs import reduced as r_reduced
@@ -73,6 +84,9 @@ RUNS = {**{arch: (arch, F64, LOOP, STRATEGIES) for arch in FAMILIES},
         "moe_drops": ("granite-moe-3b-a800m", DROPS, DROP_LOOP, ("2d",))}
 RTOL = 1e-5
 REF_TOL = 1e-4
+SERVE = ("xlstm-125m", "smollm-360m", "granite-moe-3b-a800m", "qwen2-vl-7b",
+         "zamba2-2.7b", "whisper-medium")
+SERVE_RTOL = {"zamba2-2.7b": 1e-6}
 
 
 def _close(got, want, tol, what=""):
@@ -126,7 +140,7 @@ def ckpts(tmp_path_factory):
 def world(ckpts, tmp_path_factory):
     return run_world("mesh_families", 4,
                      tmp_path_factory.mktemp("mesh_families"), ckpts=ckpts,
-                     runs=RUNS)
+                     runs=RUNS, serve=SERVE)
 
 
 @pytest.fixture(scope="module")
@@ -202,3 +216,25 @@ def test_moe_drops_the_same_tokens(world, one_device):
     for a, b in zip(got["keep"], want):
         np.testing.assert_array_equal(a, b)
     assert not all(k.all() for k in want)
+
+
+@pytest.mark.parametrize("arch", SERVE)
+def test_serve_on_a_mesh_matches_one_device(world, arch):
+    """A prefill and 4 decode steps on the 2 x 2 mesh, the carried states
+    and KV caches on the shards (the KV cache's sequence over the model
+    axis), give the one-device run's logits and final caches."""
+    tol = SERVE_RTOL.get(arch, 1e-9)
+    got = result(world, f"serve/{arch}")
+    want = serve_run(mesh_config(arch, dtype="float64"), None)
+    assert len(got["logits"]) == len(want["logits"]) == 5
+    for i, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+        _close(a, b, tol, f"{arch} logits {i}")
+
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in flat(tree[k])]
+        if isinstance(tree, list):
+            return [x for t in tree for x in flat(t)]
+        return [tree]
+    for a, b in zip(flat(got["caches"]), flat(want["caches"]), strict=True):
+        _close(a, b, tol, f"{arch} caches")

@@ -480,11 +480,19 @@ def test_straggler_detection():
 
 # ----------------------------------------------------------------- launcher
 
-@pytest.mark.parametrize("flags,item", [(["--autotune"], "item 10")])
-def test_launcher_refuses_what_is_not_ported(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_main(["--arch", "zamba2-2.7b", "--reduced", "--device", "cpu",
-                    *flags])
+def test_launcher_autotunes(capsys):
+    """``--autotune`` (the reference's ``launch/train.py:47-53``): the step
+    counted under ``2d``, ``tp`` and ``zero3`` on the launcher's mesh, the
+    pick printed and trained under, two finite losses."""
+    out = train_main(["--arch", "zamba2-2.7b", "--reduced", "--device", "cpu",
+                      "--autotune", "--steps", "2", "--batch", "2",
+                      "--seq-len", "16"])
+    tuned = out["autotune"]
+    assert sorted(s for s, _ in tuned.ranked) == ["2d", "tp", "zero3"]
+    assert out["strategy"] == tuned.best == tuned.ranked[0][0]
+    assert all(np.isfinite(t) and t > 0 for _, t in tuned.ranked)
+    assert f"autotune picked strategy {tuned.best!r}" in capsys.readouterr().out
+    assert len(out["losses"]) == 2 and np.all(np.isfinite(out["losses"]))
 
 
 def test_launcher_trains_on_a_mesh_of_one():
