@@ -206,6 +206,14 @@ Phases, one JSON line each:
                first and running beside every phase up to the CV worker's
                (read after lm_families_mesh): status ok, its row and
                seconds
+  mesh_cells_host  fault F6's 28 training cells (``F6_CELLS``: every
+               family's ``train_4k`` step at full width, depth cut as
+               ``tests/_mesh_cells.py`` cuts it, on meta tensors over a
+               fake process group of (2, 2), (2, 16) or (16, 16) ranks)
+               run by this host's torch in spawned workers at a lower
+               priority, started first and read after lm_families_mesh;
+               each cell's status and seconds, the pool's seconds, the
+               wait for it, the torch version; every cell must run
   roofline     the four parts' numbers in one line
 
 then a ``{"kernels": [...]}`` line (the forest kernel's entry counts its
@@ -369,6 +377,25 @@ AUTOTUNE_ARCH, AUTOTUNE_BATCH, AUTOTUNE_SEQ, AUTOTUNE_STEPS = (
     "smollm-360m", 8, 1024, 2)
 DRYRUN_CELL = ("smollm-360m", "train_4k", "pod16x16", "2d")
 DRYRUN_TIMEOUT_S = 900
+
+# fault F6 (ROADMAP section 3): the training cells that torch 2.11's DTensor
+# refused (a sequence-sharded view inside x @ w) while 2.13's ran them,
+# each run on a fake process group on the host by this torch, with
+# tests/_mesh_cells.py's cuts, in a pool of spawned workers (a fake process
+# group is per process), one process a cell, at a lower priority than the
+# rest of the run (the dry-run cell beside it sets the run's length); every
+# one must run
+F6_CELLS = tuple(
+    [(a, (2, 2), s) for a in ("smollm-360m", "qwen2.5-14b", "qwen1.5-110b",
+                              "whisper-medium", "olmoe-1b-7b", "xlstm-125m")
+     for s in ("zero3", "tp", "sp")]
+    + [(a, (2, 2), "sp") for a in ("granite-moe-3b-a800m", "qwen2-vl-7b",
+                                   "mistral-large-123b", "zamba2-2.7b")]
+    + [(a, m, "2d") for a in ("zamba2-2.7b", "xlstm-125m")
+       for m in ((2, 2), (2, 16), (16, 16))])
+MESH_CELL_WORKERS = 4
+MESH_CELL_NICE = 19          # below the dry-run and the timed phases
+MESH_CELLS_TIMEOUT_S = 1000
 
 # the LM training path: zamba2-2.7b at full width through launch/train.py,
 # global batch 4 x 1024 in the config's 2 microbatches, 1 warm-up step and
@@ -3011,6 +3038,77 @@ def roofline_dryrun_phase(started: tuple, smi: str) -> dict:
     return out
 
 
+def mesh_cell(cell: tuple) -> dict:
+    """One F6 cell (arch, mesh shape, strategy) in this worker process, off
+    the card: tests/_mesh_cells.py's ``run_cell`` (the cut ``train_4k``
+    step on meta tensors over a fake process group); its status, seconds
+    and, if it raised, the end of its traceback."""
+    import os
+    import traceback
+    os.nice(MESH_CELL_NICE)
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path[:0] = [str(REPO / "src"), str(REPO / "tests")]
+    import torch
+    torch.set_num_threads(1)
+    from _mesh_cells import run_cell
+
+    arch, mesh_shape, strategy = cell
+    out = {"arch": arch, "mesh": "x".join(map(str, mesh_shape)),
+           "strategy": strategy}
+    t0 = time.perf_counter()
+    try:
+        got = run_cell(arch, mesh_shape, strategy)
+        out["ok"] = (got["loss_shape"] == ()
+                     and got["placements"] == got["want"] == got["out_pl"])
+        if not out["ok"]:
+            out["error"] = "the loss is not a scalar, or the state left " \
+                           "its placements"
+    except Exception:               # reported; the phase fails on it
+        out["ok"] = False
+        out["error"] = traceback.format_exc()[-3000:]
+    out["seconds"] = time.perf_counter() - t0
+    out["done_at"] = time.time()
+    return out
+
+
+@contextlib.contextmanager
+def mesh_cells_host():
+    """The F6 cells on the host in MESH_CELL_WORKERS spawned processes, for
+    the block's length: yields (the pool's pending results, start time);
+    the pool is terminated at the end of the block."""
+    pool = multiprocessing.get_context("spawn").Pool(MESH_CELL_WORKERS,
+                                                     maxtasksperchild=1)
+    try:
+        yield pool.map_async(mesh_cell, F6_CELLS, chunksize=1), time.time()
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def mesh_cells_host_phase(started: tuple, smi: str) -> dict:
+    """Every F6 cell's status and seconds under this torch, the seconds
+    from the pool's start to its last cell's end, and how long the main
+    process waited for them here; fails unless every cell ran."""
+    import torch
+    pending, t0 = started
+    t_read = time.time()
+    cells = pending.get(timeout=max(1.0, MESH_CELLS_TIMEOUT_S
+                                    - (t_read - t0)))
+    out = {"torch": torch.__version__, "cells": [
+        {k: c[k] for k in ("arch", "mesh", "strategy", "ok", "seconds")}
+        for c in cells], "ok": sum(c["ok"] for c in cells),
+        "of": len(cells), "seconds": max(c["done_at"] for c in cells) - t0,
+        "waited_s": time.time() - t_read, "workers": MESH_CELL_WORKERS}
+    emit("mesh_cells_host", **out, card=smi)
+    failed = [c for c in cells if not c["ok"]]
+    if failed:
+        raise AssertionError("F6 cells failed under torch "
+                             f"{torch.__version__}:\n" + "\n".join(
+                                 f"{c['arch']} {c['mesh']} {c['strategy']}: "
+                                 f"{c['error']}" for c in failed))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3018,13 +3116,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     # the dry-run cell (roofline (d)) runs on the host from the start, so
-    # that it is done before the LM phases are
-    with dryrun_cell() as dry_started:
-        return run(dry_started)
+    # that it is done before the LM phases are; so do the F6 cells, read
+    # just before it
+    with dryrun_cell() as dry_started, mesh_cells_host() as cells_started:
+        return run(dry_started, cells_started)
 
 
-def run(dry_started) -> int:
-    """Every phase; ``dry_started`` is the dry-run cell's subprocess."""
+def run(dry_started, cells_started) -> int:
+    """Every phase; ``dry_started`` is the dry-run cell's subprocess,
+    ``cells_started`` the F6 cells' pool."""
     import torch
     sys.path.insert(0, str(REPO / "src"))
     import numpy as np
@@ -3328,6 +3428,7 @@ def run(dry_started) -> int:
         lm_dense_train_f32_phase(dev)
         families = lm_families_phase(dev, smi)
         families_mesh = lm_families_mesh_phase(dev, smi)
+        mesh_cells_host_phase(cells_started, smi)
         dryrun = roofline_dryrun_phase(dry_started, smi)
         t0 = time.perf_counter()
         cv = cv_future.result()

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..sharding.context import embedding_rows, on_mesh
+from ..sharding.context import embedding_rows, on_mesh, project
 from .attention import (_out, _qkv, attend_cross, attend_decode,
                         attend_full, attend_prefill, attend_train,
                         attn_specs, cross_kv, kv_cache_shape)
@@ -172,7 +172,7 @@ def _embed(cfg, params, tokens, offset: int = 0):
 
 def _logits(cfg, params, x):
     x = _norm(params["ln_dec"], x, cfg)
-    return x @ params["embed"].T.to(x.dtype)
+    return project(x, params["embed"].T)
 
 
 def encdec_loss(cfg, params, batch_dict):

@@ -32,7 +32,7 @@ import math
 import torch
 
 from ..sharding.context import (constrain, constrain_tree, current_ctx,
-                                embedding_rows)
+                                embedding_rows, project)
 from .attention import (attend_decode, attend_prefill, attend_train,
                         attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, KV_HEADS, VOCAB, ParamSpec,
@@ -187,7 +187,7 @@ def _embed_inputs(cfg, params, batch_dict):
     if cfg.family == "vlm" and "patch_embeds" in batch_dict:
         pp = params["patch_proj"]
         pe = batch_dict["patch_embeds"].to(dt)
-        img = gelu(pe @ pp["w1"].to(dt)) @ pp["w2"].to(dt)
+        img = project(gelu(project(pe, pp["w1"])), pp["w2"])
         x = torch.cat([img, x], dim=1)
         s_img = pe.shape[1]
     return constrain(x, ("act_batch", "act_seq", "act_embed")), s_img
@@ -202,7 +202,7 @@ def _positions(cfg, x, s_img: int, s_text: int):
 def _logits(cfg, params, x):
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return constrain(x @ head.to(x.dtype),
+    return constrain(project(x, head),
                      ("act_batch", "act_seq", "act_vocab"))
 
 

@@ -23,7 +23,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.mamba import ops
 from ..kernels.mamba.ref import ssd_chunked
-from ..sharding.context import constrain
+from ..sharding.context import constrain, project
 from .common import CONV, EMBED, HEADS, INNER, ParamSpec, rms_norm, silu, softplus
 
 
@@ -77,7 +77,7 @@ def mamba_mix(cfg, p, u, ssm_state=None, conv_state=None, *, decode=False):
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     P = cfg.ssm_head_dim
     dtp = u.dtype
-    proj = u @ p["in_proj"].to(dtp)                             # (B,S,2di+2N+H)
+    proj = project(u, p["in_proj"])                             # (B,S,2di+2N+H)
     proj = constrain(proj, ("act_batch", "act_seq", "act_inner"))
     z, xbc, dt_raw = _split_proj(cfg, proj)
     xbc, new_conv = _causal_conv(p, xbc, conv_state if decode else None)
@@ -112,7 +112,7 @@ def mamba_mix(cfg, p, u, ssm_state=None, conv_state=None, *, decode=False):
     y = y + xh * p["d_skip"].to(dtp)[None, None, :, None]
     y = y.reshape(Bsz, S, di)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps) * silu(z)
-    out = y @ p["out_proj"].to(dtp)
+    out = project(y, p["out_proj"])
     out = constrain(out, ("act_batch", "act_seq", "act_embed"))
     return out, (new_conv, new_ssm)
 

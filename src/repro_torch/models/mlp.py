@@ -1,7 +1,7 @@
 """Gated (SwiGLU) and plain-GELU MLPs (the port of ``repro.models.mlp``)."""
 from __future__ import annotations
 
-from ..sharding.context import constrain
+from ..sharding.context import constrain, project
 from .common import EMBED, MLP, ParamSpec, gelu, silu
 
 
@@ -16,10 +16,9 @@ def swiglu_specs(cfg, d_ff: int | None = None) -> dict:
 
 
 def swiglu(p, x):
-    dt = x.dtype
-    h = silu(x @ p["wi_gate"].to(dt)) * (x @ p["wi_up"].to(dt))
+    h = silu(project(x, p["wi_gate"])) * project(x, p["wi_up"])
     h = constrain(h, ("act_batch", "act_seq", "act_mlp"))
-    return h @ p["wo"].to(dt)
+    return project(h, p["wo"])
 
 
 def gelu_mlp_specs(cfg) -> dict:
@@ -34,6 +33,6 @@ def gelu_mlp_specs(cfg) -> dict:
 
 def gelu_mlp(p, x):
     dt = x.dtype
-    h = gelu(x @ p["wi"].to(dt) + p["bi"].to(dt))
+    h = gelu(project(x, p["wi"]) + p["bi"].to(dt))
     h = constrain(h, ("act_batch", "act_seq", "act_mlp"))
-    return h @ p["wo"].to(dt) + p["bo"].to(dt)
+    return project(h, p["wo"]) + p["bo"].to(dt)

@@ -40,7 +40,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from ..sharding.context import constrain
+from ..sharding.context import constrain, project
 from ..sharding.rules import distribute
 from .common import EMBED, EXPERT, MLP, ParamSpec, f32, silu
 
@@ -69,7 +69,7 @@ def route(cfg, p, xt):
     renormalized, top_e), each (T, k), largest first. ``lax.top_k`` puts
     the lower expert index first among equal probabilities; a stable sort
     does the same (``torch.topk`` promises no order among ties)."""
-    logits = f32(xt @ p["router"].to(xt.dtype))
+    logits = f32(project(xt, p["router"]))
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.experts_per_tok

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from ..sharding.context import product_on_shards, reduced
+from ..sharding.context import product_on_shards, project, reduced
 from .common import (EMBED, HEAD_DIM, HEADS, INNER, ParamSpec, f32, rms_norm,
                      silu)
 
@@ -210,12 +210,12 @@ def mlstm_apply(cfg, p, x, state=None, *, decode: bool = False):
     if decode and S != 1:
         raise ValueError(f"a decode step takes one token, got {S}")
     dt = x.dtype
-    h = x @ p["w_up"].to(dt)                                    # (B,S,up)
-    gate = silu(x @ p["w_gate"].to(dt))
+    h = project(x, p["w_up"])                                   # (B,S,up)
+    gate = silu(project(x, p["w_gate"]))
     q, k, v = (f32(_heads(h, p[w])) for w in ("wq", "wk", "wv"))
     hf = f32(h)
-    logi = reduced(hf @ f32(p["w_i"])) + f32(p["b_i"])
-    f_pre = reduced(hf @ f32(p["w_f"])) + f32(p["b_f"])
+    logi = reduced(project(hf, p["w_i"])) + f32(p["b_i"])
+    f_pre = reduced(project(hf, p["w_f"])) + f32(p["b_f"])
     chunk = None if decode else min(64, max(8, S))
 
     if isinstance(q, DTensor):
@@ -228,7 +228,7 @@ def mlstm_apply(cfg, p, x, state=None, *, decode: bool = False):
 
     y = y.reshape(B, S, -1).to(dt)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps) * gate
-    return y @ p["w_down"].to(dt), state
+    return project(y, p["w_down"]), state
 
 
 # ------------------------------------------------------------------- sLSTM
@@ -343,4 +343,4 @@ def slstm_apply(cfg, p, x, state=None, *, decode: bool = False):
         y, state = _slstm_steps(gates, r, b, state)
     y = y.reshape(B, S, d).to(dt)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps)
-    return y @ p["w_out"].to(dt), state
+    return project(y, p["w_out"]), state

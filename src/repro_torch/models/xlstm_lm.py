@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..sharding.context import constrain, embedding_rows
+from ..sharding.context import constrain, embedding_rows, project
 from .common import (BATCH, EMBED, VOCAB, ParamSpec, cross_entropy_loss,
                      remat, rms_norm, stack_specs, unstack)
 from .xlstm import mlstm_apply, mlstm_specs, slstm_apply, slstm_specs
@@ -114,7 +114,7 @@ def xlstm_loss(cfg, params, batch_dict):
     x, _ = _forward(cfg, params, _embed(cfg, params, batch_dict["tokens"]),
                     "train")
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = x @ params["lm_head"].to(x.dtype)
+    logits = project(x, params["lm_head"])
     return cross_entropy_loss(logits, batch_dict["labels"]), {}
 
 
@@ -123,7 +123,7 @@ def xlstm_prefill(cfg, params, batch_dict):
     x, states = _forward(cfg, params,
                          _embed(cfg, params, batch_dict["tokens"]), "prefill")
     x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype), states
+    return project(x, params["lm_head"]), states
 
 
 def xlstm_decode(cfg, params, batch_dict, states):
@@ -133,7 +133,7 @@ def xlstm_decode(cfg, params, batch_dict, states):
                          _embed(cfg, params, batch_dict["tokens"]), "decode",
                          states=states)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype), states
+    return project(x, params["lm_head"]), states
 
 
 def xlstm_cache_spec(cfg, batch: int, max_len: int):

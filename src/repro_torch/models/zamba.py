@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..sharding.context import constrain, embedding_rows
+from ..sharding.context import constrain, embedding_rows, project
 from .attention import (attend_decode, attend_prefill, attend_train,
                         attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, HEADS, KV_HEADS, LORA, VOCAB,
@@ -172,7 +172,7 @@ def zamba_loss(cfg, params, batch_dict):
     x = _embed(cfg, params, batch_dict["tokens"])
     x, _ = _forward(cfg, params, x, "train")
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = x @ params["lm_head"].to(x.dtype)
+    logits = project(x, params["lm_head"])
     return cross_entropy_loss(logits, batch_dict["labels"]), {}
 
 
@@ -181,7 +181,7 @@ def zamba_prefill(cfg, params, batch_dict):
     x = _embed(cfg, params, batch_dict["tokens"])
     x, caches = _forward(cfg, params, x, "prefill")
     x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype), caches
+    return project(x, params["lm_head"]), caches
 
 
 def zamba_decode(cfg, params, batch_dict, caches):
@@ -191,7 +191,7 @@ def zamba_decode(cfg, params, batch_dict, caches):
     x, caches = _forward(cfg, params, x, "decode", caches=caches,
                          pos=int(batch_dict["pos"]))
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype), caches
+    return project(x, params["lm_head"]), caches
 
 
 def zamba_cache_spec(cfg, batch: int, max_len: int):

@@ -23,6 +23,11 @@ head_dim) runs on each rank's shards (``product_on_shards``): DTensor
 cannot unflatten a sharded ``heads x head_dim`` dimension into a head
 count that the mesh dimension does not divide (smollm's 15 heads on a
 model axis of 2).
+
+Every other projection of an activation by a 2-D weight goes through
+``project``: torch 2.11's DTensor refuses the matmul's view of an x whose
+sequence is sharded, or of such a gradient (fault F6), and ``project``
+keeps both off that view.
 """
 from __future__ import annotations
 
@@ -168,6 +173,53 @@ def product_on_shards(fn, x, w, contract: int = 1):
     fn = local_map(fn, out_placements=out_pl, in_placements=(x_pl, w_pl),
                    in_grad_placements=(x_grad, w_grad), device_mesh=mesh)
     return fn(x.redistribute(mesh, x_pl), w.redistribute(mesh, w_pl))
+
+
+def _rows_refused(t) -> bool:
+    """Whether torch 2.11's DTensor refuses to view the DTensor ``t`` (..., n)
+    as (rows, n): a dimension after the first of its leading ones is
+    sharded ("Attempted to flatten multiple dimensions", fault F6)."""
+    return any(0 < getattr(p, "dim", 0) < t.ndim - 1 for p in t.placements)
+
+
+def project(x, w):
+    """``x @ w`` in x's dtype: an activation x (..., k) times a 2-D weight
+    w (k, n), the one route of a projection on a mesh. A matmul views x as
+    (rows, k), and in its backward the product's gradient as (rows, n). An
+    x whose sequence is sharded (``sp``) runs on each rank's shards
+    (``product_on_shards``); any other x takes the matmul itself,
+    DTensor's own rule, so its partial sums are reduced where they were,
+    and a gradient that comes back so sharded first meets the product's
+    own placements there (``_GradRows``)."""
+    w = w.to(x.dtype)
+    if not isinstance(x, DTensor):
+        return x @ w
+    if _rows_refused(x):
+        return product_on_shards(torch.matmul, x, w)
+    return _GradRows.apply(x @ w)
+
+
+class _GradRows(torch.autograd.Function):
+    """The identity; in the backward, a gradient that torch 2.11 could not
+    view as rows is redistributed to the forward's placements on each mesh
+    dimension that shards such a dimension (a partial sum there made whole:
+    a gradient is never partial by redistribution). Any other gradient
+    passes as it came, so the sums stay where DTensor put them."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.placements = y.placements
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not _rows_refused(grad):
+            return grad
+        lead = grad.ndim - 1
+        want = [(Replicate() if f.is_partial() else f)
+                if 0 < getattr(g, "dim", 0) < lead else g
+                for g, f in zip(grad.placements, ctx.placements)]
+        return grad.redistribute(grad.device_mesh, want)
 
 
 def embedding_rows(table, tokens):

@@ -600,3 +600,52 @@ def mesh_families(rank, world, out, checks, ckpts: dict, runs: dict,
     for arch in serve:
         checks(f"serve/{arch}", lambda arch=arch: serve_run(
             mesh_config(arch, dtype="float64"), mesh22))
+
+
+def _placement(code: str):
+    from torch.distributed.tensor import Replicate, Shard
+
+    return Replicate() if code == "R" else Shard(int(code[1:]))
+
+
+def project_cases(rank, world, out, checks, cases: dict):
+    """``sharding.context.project`` on a 2 x 2 mesh in float64 under torch
+    2.11's view rule (tests/_mesh_cells.py): for each case, x (4, 8, 6)
+    and w (6, 10) placed by its codes ("R", "S0", ...; one per mesh
+    dimension), and, where it has third codes, a zero tensor so placed
+    added to the product (DTensor's rule for the sum moves the product
+    there, and its gradient comes back so placed); the loss is
+    sum(y * g). The product and the gradients of x and w, whole."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from _mesh_cells import view_rule_2_11
+    from repro_torch.sharding.context import project
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    x0, w0, g0 = project_inputs()
+    y0 = x0 @ w0
+    for name, (x_pl, w_pl, y_pl) in cases.items():
+        def run(x_pl=x_pl, w_pl=w_pl, y_pl=y_pl):
+            x = distribute_tensor(x0, mesh, [_placement(c) for c in x_pl])
+            w = distribute_tensor(w0, mesh, [_placement(c) for c in w_pl])
+            x.requires_grad_()
+            w.requires_grad_()
+            with view_rule_2_11():
+                y = project(x, w)
+                if y_pl:
+                    y = y + distribute_tensor(torch.zeros_like(y0), mesh, [
+                        _placement(c) for c in y_pl])
+                y = y.full_tensor()
+                gx, gw = torch.autograd.grad((y * g0).sum(), (x, w))
+            return {"y": y.detach().numpy(), "gx": gx.full_tensor().numpy(),
+                    "gw": gw.full_tensor().numpy()}
+        checks(name, run)
+
+
+def project_inputs():
+    """x (4, 8, 6), w (6, 10) and the loss's weights g (4, 8, 10), float64,
+    from numpy's generator at seed 0."""
+    rng = np.random.default_rng(0)
+    return tuple(torch.from_numpy(rng.standard_normal(s))
+                 for s in ((4, 8, 6), (6, 10), (4, 8, 10)))

@@ -38,6 +38,33 @@ ops (the sinusoid tables, the MoE's output buffer, the xLSTM's causal
 mask) or, for qwen2-vl-7b, built the M-RoPE index on the meta device
 without its size. zamba2-2.7b passed everywhere, and the dense archs on
 (2, 2) under ``tp``.
+
+Fault F6: torch 2.11's DTensor (the card's) refuses a view that flattens
+several dimensions once one after the first is sharded, and a 3-D @ 2-D
+matmul views its (B, S, d) operand, and in the backward the product's
+gradient, as (B S, d); torch 2.13's rule accepts it. Run by the parent of
+the repair (``sharding/context.py::project``) under torch 2.11.0+cu128,
+28 training cells failed:
+  * on (2, 2) under ``sp``: smollm-360m, qwen2.5-14b, qwen1.5-110b,
+    whisper-medium, olmoe-1b-7b, xlstm-125m, granite-moe-3b-a800m,
+    qwen2-vl-7b, mistral-large-123b and zamba2-2.7b, each with
+    "Attempted to flatten multiple dimensions, with dimension 1 being
+    sharded" (the sequence, in the MLP's, the Mamba2 in-projection's, the
+    mLSTM up-projection's or the logits' ``x @ w``), in its own process
+    as in a sweep;
+  * on (2, 2) under ``zero3`` and ``tp``: smollm-360m, qwen2.5-14b,
+    qwen1.5-110b, whisper-medium, olmoe-1b-7b and xlstm-125m, and under
+    ``2d`` zamba2-2.7b and xlstm-125m on (2, 2), (2, 16) and (16, 16).
+    These 18 ran in their own processes; they failed in the sweep only
+    after an ``sp`` cell had failed in the same process: that cell's
+    checkpointed layer left its saved-tensor hooks in place (torch 2.13's
+    checkpoint unwinds them when a forward raises), so the next cell's
+    backward recomputed the failed cell's layer. The flatten error again,
+    "Attempting to broadcast" (another arch's widths) in an ``rms_norm``,
+    and "Could not resolve the process group" (a destroyed group's name)
+    in a ``product_on_shards`` were those recomputations.
+Torch 2.13 runs every cell. ``view_rule_2_11`` holds 2.11's view rule
+here: ``run_cell`` and ``run_serve_cell`` run every cell under it.
 """
 from __future__ import annotations
 
@@ -56,6 +83,54 @@ def _placements(tree) -> list:
     if isinstance(tree, dict):
         return [p for k in sorted(tree) for p in _placements(tree[k])]
     return [tuple(getattr(tree, "placements", tree))]
+
+
+# torch 2.11's refusal, word for word (a RuntimeError of two strings)
+VIEW_RULE_ERROR = ("Attempted to flatten multiple dimensions, with dimension "
+                   "{} being sharded. ", "It cannot be performed without "
+                   "redistribution, which is disallowed by the current "
+                   "operator.")
+
+
+@contextlib.contextmanager
+def view_rule_2_11():
+    """DTensor's view rule as torch 2.11 has it, whatever torch runs: a view
+    (``aten.view``, ``aten._unsafe_view``: a strict view, which may not
+    redistribute) that flattens several dimensions refuses a shard on any
+    but the first of them. A 3-D @ 2-D matmul views its (B, S, d) operand
+    as (B S, d), so a sequence-sharded ``x @ w`` raises (fault F6). Torch
+    2.13's rule accepts it (the shard becomes a strided one). The guard
+    wraps the view propagator's flatten analysis and clears the sharding
+    caches on entry and exit; where torch has no such propagator, its own
+    rule is 2.11's and nothing is wrapped."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._ops import _view_ops
+    from torch.distributed.tensor.debug import _clear_sharding_prop_cache
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    cls = getattr(_view_ops, "_ViewShardingPropagator", None)
+    if cls is None:
+        yield
+        return
+    analyze = cls._analyze_flatten
+
+    def refusing(self, cmd):
+        if self.strict_view:
+            for dim in cmd.input_dims[1:]:
+                if any(isinstance(p, (Shard, _StridedShard))
+                       and p.dim == dim.input_dim
+                       for p in self.input_src_placements):
+                    msg = VIEW_RULE_ERROR[0].format(dim.input_dim)
+                    raise RuntimeError(msg, VIEW_RULE_ERROR[1])
+        return analyze(self, cmd)
+
+    _clear_sharding_prop_cache()
+    cls._analyze_flatten = refusing
+    try:
+        yield
+    finally:
+        cls._analyze_flatten = analyze
+        _clear_sharding_prop_cache()
 
 
 @contextlib.contextmanager
@@ -102,7 +177,7 @@ def run_cell(arch: str, mesh_shape: tuple, strategy: str) -> dict:
                                                 shape, strategy, mesh)
         state = distribute_tree(args[0], mesh, in_pl[0])
         batch = distribute_tree(args[1], mesh, in_pl[1])
-        with activation_sharding(mesh, strategy):
+        with view_rule_2_11(), activation_sharding(mesh, strategy):
             new, metrics = step(state, batch)
         return {"loss_shape": tuple(metrics["loss"].shape),
                 "placements": _placements(new),
@@ -131,5 +206,5 @@ def run_serve_cell(arch: str, mesh_shape: tuple, strategy: str,
         fn, args, in_pl, _, _ = cell_fns(build_model(_cut(arch)), shape,
                                          strategy, mesh)
         args = [distribute_tree(a, mesh, pl) for a, pl in zip(args, in_pl)]
-        with activation_sharding(mesh, strategy):
+        with view_rule_2_11(), activation_sharding(mesh, strategy):
             return fn(*args)

@@ -1,8 +1,9 @@
 """Every arch's ``train_4k`` cell at full width under ``2d`` on fake
 (2, 2), (2, 16) and (16, 16) meshes (tests/_mesh_cells.py says how, what is
-cut and which cells failed before the F1 repair): forward, backward and
-AdamW run, the loss is a scalar, and the new state keeps the placements
-the cell gave the old one."""
+cut and which cells failed before the F1 and F6 repairs), under torch
+2.11's DTensor view rule: forward, backward and AdamW run, the loss is a
+scalar, and the new state keeps the placements the cell gave the old
+one."""
 import pytest
 
 from _mesh_cells import run_cell

@@ -1,7 +1,7 @@
 """Every arch's ``train_4k`` cell at full width under ``zero3``, ``tp`` and
-``sp`` on a fake (2, 2) mesh (tests/_mesh_cells.py says how, what is cut
-and which cells failed before the F1 repair); ``2d`` is in
-tests/test_torch_mesh_cells.py."""
+``sp`` on a fake (2, 2) mesh, under torch 2.11's DTensor view rule
+(tests/_mesh_cells.py says how, what is cut and which cells failed before
+the F1 and F6 repairs); ``2d`` is in tests/test_torch_mesh_cells.py."""
 import pytest
 
 from _mesh_cells import run_cell, run_serve_cell
