@@ -122,6 +122,18 @@ Phases, one JSON line each:
                the model's (B, S, H, D) strides, masked keys and rows that
                see none, f32 and bf16; bitwise repeatable; the
                autograd.Function's gradients against the plain version's
+  flash_lse    B2's row log-sum-exp (``return_lse``) against its plain
+               version's on those shapes and on masked ones (a head dim of
+               20, which the 16-byte stores do not take): -inf on exactly
+               the rows that see no key, o unchanged by the option
+  flash_split  the context-parallel merge (``models/attention.py``'s
+               ``merge_partials``): zamba2's and smollm-360m's training
+               shapes with the keys cut into 2, 4 and 16 shards, each
+               launched with kv_offset = -start and its lse, merged and
+               held to B2 over the whole keys, f32 and bf16, with the
+               gradients through the merge held to the plain version's;
+               the heaviest of smollm's 16 shard launches timed beside the
+               whole launch
   lm_train     zamba2-2.7b trained through ``launch.train.main`` on the 1 x 1
                NCCL mesh (the process group NCCL, the mesh (1, 1), every
                parameter a DTensor on the card, asserted): both kernels'
@@ -214,6 +226,14 @@ Phases, one JSON line each:
                priority, started first and read after lm_families_mesh;
                each cell's status and seconds, the pool's seconds, the
                wait for it, the torch version; every cell must run
+  context_parallel_host  the context-parallel attention on 4 gloo ranks
+               of the host under the host's torch (tests/_gloo.py's
+               ``context_parallel`` world: reduced smollm-360m with 3 / 1
+               heads, float64, under 2d, tp, zero3 and sp, ``attend_train``
+               with its gradients and ``attend_prefill`` with its K/V held
+               to one device at rtol 1e-9; the prefill's K keeps its
+               sequence shard), in a subprocess at the cells' priority
+               started first and read after them
   roofline     the four parts' numbers in one line
 
 then a ``{"kernels": [...]}`` line (the forest kernel's entry counts its
@@ -224,7 +244,10 @@ entry's ``launches`` are zamba2's training run's, ``smollm_launches``
 smollm-360m's, ``families_launches`` the depth-cut families' step's and
 ``families_mesh_launches`` their mesh runs',
 with smollm's shape and times beside zamba2's; ``launch_path`` says that
-the training launches come from the mesh path), the card's name and power
+the training launches come from the mesh path; ``lse_checks`` and
+``split_checks`` count flash_lse's and flash_split's checks, with
+``split_timing`` and each strategy's ``context_parallel_host`` distance
+in units of its tolerance), the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}`` last. Any
 failed check raises and the script exits non-zero; without a CUDA device it
 exits non-zero before printing any result. The kernels build into
@@ -300,6 +323,18 @@ FLASH_BF16_CASE = (1, 2, 2, 32, 32, 16, True)
 FLASH_TRAIN = (2, 32, 32, 1024, 1024, 80, True)
 FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
              "bfloat16": dict(rtol=0.08, atol=0.08)}
+# B2's row log-sum-exp (``return_lse``) and the context-parallel merge
+# (models/attention.py::merge_partials): lse held to the plain version's on
+# FLASH_CASES, on rows that see no key (kv_offset < 0) and on a head dim
+# the 16-byte stores do not take (D 20); then zamba2's and smollm-360m's
+# training shapes with the keys cut into FLASH_SPLITS shards, each launched
+# with its kv_offset, merged, and held to B2 over the whole keys, with the
+# gradients through the merge held to the plain version's; the events time
+# of the heaviest of smollm's 16 shard launches beside the whole launch
+FLASH_LSE_MASKED = ((2, 4, 2, 96, 80, 64), (1, 3, 1, 50, 70, 20))
+FLASH_SPLITS = (2, 4, 16)
+FLASH_SPLIT_SHAPES = {"zamba2-2.7b": FLASH_TRAIN[:6],
+                      "smollm-360m": (4, 15, 5, 1024, 1024, 64)}
 
 # the other LM families (models/lm.py, moe.py, xlstm*.py, encdec.py): B2 at
 # each family's training shape, one microbatch, causal, (B, Hq, Hkv, Sq,
@@ -396,6 +431,12 @@ F6_CELLS = tuple(
 MESH_CELL_WORKERS = 4
 MESH_CELL_NICE = 19          # below the dry-run and the timed phases
 MESH_CELLS_TIMEOUT_S = 1000
+# context-parallel attention under this host's torch (the card's): the
+# comparison of tests/test_torch_context_parallel.py (c) on 4 gloo ranks
+# (tests/_gloo.py's ``context_parallel`` world against one device, float64,
+# rtol 1e-9; neither imports jax or the reference), in a subprocess at
+# MESH_CELL_NICE beside the F6 cells
+CP_HOST_TIMEOUT_S = 600
 
 # the LM training path: zamba2-2.7b at full width through launch/train.py,
 # global batch 4 x 1024 in the config's 2 microbatches, 1 warm-up step and
@@ -889,6 +930,137 @@ def flash_kernel_phase(dev) -> dict:
             "max_abs_err_bf16": worst[torch.bfloat16]}
 
 
+def flash_lse_phase(dev) -> dict:
+    """B2's lse output against its plain version's (``attention_ref(...,
+    return_lse=True)``) on FLASH_CASES and the masked cases, f32 and bf16:
+    -inf exactly on the rows that see no key, o unchanged by the option."""
+    import torch
+    from repro_torch.kernels.attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.attention.ref import attention_ref
+    cases = [(*shape, None) for shape in FLASH_CASES]
+    cases += [(*shape, True, off) for shape in FLASH_LSE_MASKED
+              for off in (None, -40)]
+    worst, hidden_rows = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (B, Hq, Hkv, Sq, Skv, D, causal, off) in enumerate(cases):
+            q, k, v = flash_inputs(dev, B, Hq, Hkv, Sq, Skv, D, dtype,
+                                   seed=70 + i, model_layout=i % 2 == 1)
+            kw = dict(causal=causal, kv_offset=off)
+            o, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
+            o_plain, lse_plain = attention_ref(q, k, v, return_lse=True, **kw)
+            o_only = flash_attention_kernel(q, k, v, **kw)
+            torch.cuda.synchronize()
+            what = f"{(B, Hq, Hkv, Sq, Skv, D, causal, off)} {dtype}"
+            if not torch.equal(o, o_only):
+                raise AssertionError(f"return_lse changed o at {what}")
+            if lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq):
+                raise AssertionError(f"lse {lse.dtype} {tuple(lse.shape)} "
+                                     f"at {what}")
+            empty = torch.isneginf(lse_plain)
+            if not torch.equal(torch.isneginf(lse), empty):
+                raise AssertionError(f"lse is -inf elsewhere than on the "
+                                     f"rows that see no key at {what}")
+            hidden_rows += int(empty.sum())
+            torch.testing.assert_close(
+                lse[~empty], lse_plain[~empty].float(),
+                **FLASH_TOL[dtype_name(dtype)], msg=f"lse at {what}")
+            torch.testing.assert_close(o.float(), o_plain.float(),
+                                       **FLASH_TOL[dtype_name(dtype)],
+                                       msg=f"o at {what}")
+            err = float((lse[~empty] - lse_plain[~empty]).abs().max())
+            worst[dtype_name(dtype)] = max(worst.get(dtype_name(dtype), 0.0),
+                                           err)
+    if hidden_rows == 0:
+        raise AssertionError("no lse case had a row that sees no key")
+    out = {"checks": 2 * len(cases), "lse_max_abs_err": worst,
+           "hidden_rows": hidden_rows}
+    emit("flash_lse", **out, tol=FLASH_TOL)
+    return out
+
+
+def flash_split_phase(dev, smi: str) -> dict:
+    """The context-parallel merge on the card: zamba2's and smollm-360m's
+    training shapes (FLASH_SPLIT_SHAPES, the model's (B, S, H, D) layout)
+    with the keys cut into each of FLASH_SPLITS shards, each shard launched
+    through ``flash_attention`` with kv_offset = -start and
+    ``return_lse=True``, merged by ``merge_partials`` over the stacked
+    shards and held to B2 over the whole keys at FLASH_TOL, f32 and bf16;
+    the gradients of q, k and v through the merge (the Function's backward
+    on each shard) held to autograd of the plain version over the whole
+    keys. Then the events time of the heaviest of smollm's 16 shard
+    launches (shard 0: every row sees its keys) beside the whole launch,
+    bf16, each beside its bound."""
+    import torch
+    from repro_torch.kernels.attention import ops as fops
+    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.models.attention import merge_partials, stacked
+
+    def shards(q, k, v, m):
+        n = k.shape[2] // m
+        parts = [fops.flash_attention(
+            q, k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n],
+            causal=True, kv_offset=-r * n, return_lse=True)
+            for r in range(m)]
+        return merge_partials(torch.stack([p[0] for p in parts]),
+                              torch.stack([p[1] for p in parts]), stacked)
+    results, checks = [], 0
+    for arch, shape in FLASH_SPLIT_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = FLASH_TOL[dtype_name(dtype)]
+            q, k, v = (t.detach().requires_grad_() for t in flash_inputs(
+                dev, *shape, dtype, seed=80, model_layout=True))
+            g = torch.randn(q.shape, device=dev).to(dtype)
+            whole = fops.flash_attention(q, k, v, causal=True)
+            want = torch.autograd.grad(attention_ref(q, k, v), (q, k, v), g)
+            for m in FLASH_SPLITS:
+                merged = shards(q, k, v, m)
+                got = torch.autograd.grad(merged, (q, k, v), g)
+                torch.cuda.synchronize()
+                what = f"{arch} {dtype} over {m} key shards"
+                torch.testing.assert_close(merged.float(), whole.float(),
+                                           **tol, msg=what)
+                for name, a, b in zip("qkv", got, want):
+                    torch.testing.assert_close(a, b, **tol,
+                                               msg=f"{what} d{name}")
+                checks += 1
+                results.append({
+                    "arch": arch, "dtype": dtype_name(dtype), "shards": m,
+                    "max_abs_err": float((merged.float() - whole.float())
+                                         .abs().max().detach()),
+                    "grads_max_err": max(float((a.float() - b.float())
+                                               .abs().max())
+                                         for a, b in zip(got, want))})
+            del q, k, v, g, whole, want, merged, got
+            torch.cuda.empty_cache()
+    # one shard launch of smollm's shape beside the whole launch
+    shape = FLASH_SPLIT_SHAPES["smollm-360m"]
+    q, k, v = flash_inputs(dev, *shape, torch.bfloat16, seed=81,
+                           model_layout=True)
+    n = shape[4] // FLASH_SPLITS[-1]
+    ks, vs = k[:, :, :n], v[:, :, :n]
+    def whole():
+        return fops.flash_attention(q, k, v, causal=True)
+
+    def shard0():
+        return fops.flash_attention(q, ks, vs, causal=True, kv_offset=0,
+                                    return_lse=True)
+    whole_bound, whole_by, _ = flash_bound(q, k)
+    shard_bound, shard_by, _ = flash_bound(q, ks, kv_offset=0)
+    # events ms include the host's wrapper whenever it is slower than the
+    # kernel; device ms are the kernel's alone (kernel_times)
+    timing = {"shape": list(shape), "shards": FLASH_SPLITS[-1],
+              "whole_ms": cuda_ms(whole, iters=30, warmup=3),
+              "whole_device_ms": kernel_device_ms(whole, FLASH_KERNELS),
+              "whole_bound_ms": whole_bound, "whole_bound_by": whole_by,
+              "shard0_ms": cuda_ms(shard0, iters=30, warmup=3),
+              "shard0_device_ms": kernel_device_ms(shard0, FLASH_KERNELS),
+              "shard0_bound_ms": shard_bound, "shard0_bound_by": shard_by}
+    emit("flash_split", checks=checks, tol=FLASH_TOL, results=results,
+         timing=timing, card=smi)
+    return {"checks": checks, "timing": timing,
+            "max_abs_err": max(r["max_abs_err"] for r in results)}
+
+
 def inplace_check(records: dict):
     """A watcher for ``repro_torch.kernels.watch``: each kernel call's
     output beside its plain version's on the same inputs, as shares of
@@ -908,8 +1080,10 @@ def inplace_check(records: dict):
                 (rel_err(output[0], yp), rel_err(output[1], hp)))
         elif name == "flash_attention":
             op = attention_ref(i["q"], i["k"], i["v"], causal=i["causal"],
-                               sm_scale=i["sm_scale"])
-            records.setdefault(name, []).append((rel_err(output, op),))
+                               sm_scale=i["sm_scale"],
+                               kv_offset=i["kv_offset"])
+            got = output[0] if i["return_lse"] else output
+            records.setdefault(name, []).append((rel_err(got, op),))
         else:
             raise AssertionError(f"no plain version for {name}")
     return check
@@ -3109,6 +3283,84 @@ def mesh_cells_host_phase(started: tuple, smi: str) -> dict:
     return out
 
 
+def context_parallel_check() -> dict:
+    """Run in the subprocess of ``context_parallel_host``, off the card:
+    the context-parallel world on 4 gloo ranks under each of
+    ``_gloo.CP_STRATEGIES``, held to one device; per strategy the largest
+    distance in units of the tolerance (at most 1 to pass), the prefill
+    K's placements, or the traceback."""
+    import shutil
+    sys.path[:0] = [str(REPO / "src"), str(REPO / "tests")]
+    import torch
+    torch.set_num_threads(1)
+    import _gloo
+
+    work = REPO / "build" / "context_parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    world = _gloo.run_world("context_parallel", 4, work,
+                            timeout=CP_HOST_TIMEOUT_S - 60,
+                            strategies=_gloo.CP_STRATEGIES)
+    want = _gloo.attention_run(None)
+    out = {"torch": torch.__version__, "strategies": {}}
+    for strategy in _gloo.CP_STRATEGIES:
+        got = world[0][strategy]
+        if "error" in got:
+            out["strategies"][strategy] = {"error": got["error"][-3000:]}
+            continue
+        apart = _gloo.context_parallel_apart(got, want)
+        out["strategies"][strategy] = {
+            "worst": max(apart.values()), "at": max(apart, key=apart.get),
+            "k_placements": got["prefill_k_placements"]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+@contextlib.contextmanager
+def context_parallel_host():
+    """``context_parallel_check`` in a subprocess at MESH_CELL_NICE for
+    the block's length: yields (process, start time); the process is
+    killed at the end of the block if it still runs."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+         "chip_smoke.context_parallel_check()))"], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        preexec_fn=lambda: os.nice(MESH_CELL_NICE))
+    try:
+        yield proc, time.perf_counter()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def context_parallel_host_phase(started: tuple, smi: str) -> dict:
+    """The context-parallel check's result under this host's torch; fails
+    unless every strategy ran, matched one device and kept K's sequence
+    shard."""
+    proc, t0 = started
+    t_read = time.perf_counter()
+    log, err = proc.communicate(timeout=max(
+        1.0, CP_HOST_TIMEOUT_S - (t_read - t0)))
+    if proc.returncode != 0:
+        raise AssertionError(f"the context-parallel check exited "
+                             f"{proc.returncode}:\n{err[-4000:]}")
+    got = json.loads(log.strip().splitlines()[-1])
+    got["waited_s"] = time.perf_counter() - t_read
+    worst = {s: r.get("worst") for s, r in got["strategies"].items()}
+    got["worst"] = worst
+    emit("context_parallel_host", **got, card=smi)
+    bad = {s: r for s, r in got["strategies"].items()
+           if "error" in r or r["worst"] > 1.0
+           or r["k_placements"] != ["S(0)", "S(1)"]}
+    if bad:
+        raise AssertionError(f"context-parallel attention under torch "
+                             f"{got['torch']}: {bad}")
+    return got
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3116,15 +3368,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     # the dry-run cell (roofline (d)) runs on the host from the start, so
-    # that it is done before the LM phases are; so do the F6 cells, read
-    # just before it
-    with dryrun_cell() as dry_started, mesh_cells_host() as cells_started:
-        return run(dry_started, cells_started)
+    # that it is done before the LM phases are; so do the F6 cells and the
+    # context-parallel check, read just before it
+    with dryrun_cell() as dry_started, mesh_cells_host() as cells_started, \
+            context_parallel_host() as cp_started:
+        return run(dry_started, cells_started, cp_started)
 
 
-def run(dry_started, cells_started) -> int:
+def run(dry_started, cells_started, cp_started) -> int:
     """Every phase; ``dry_started`` is the dry-run cell's subprocess,
-    ``cells_started`` the F6 cells' pool."""
+    ``cells_started`` the F6 cells' pool, ``cp_started`` the
+    context-parallel check's subprocess."""
     import torch
     sys.path.insert(0, str(REPO / "src"))
     import numpy as np
@@ -3408,6 +3662,8 @@ def run(dry_started, cells_started) -> int:
         if not init_world(dev) or dist.get_backend() != "nccl":
             raise AssertionError("no world of one NCCL rank")
         flash = flash_kernel_phase(dev)
+        flash_lse = flash_lse_phase(dev)
+        flash_split = flash_split_phase(dev, smi)
         trained = lm_train_phase(dev)
         train_launches, per_step = trained["launches"], trained["per_step"]
         train_t = train_timing_phase(dev, trained, smi)
@@ -3429,6 +3685,7 @@ def run(dry_started, cells_started) -> int:
         families = lm_families_phase(dev, smi)
         families_mesh = lm_families_mesh_phase(dev, smi)
         mesh_cells_host_phase(cells_started, smi)
+        cp_host = context_parallel_host_phase(cp_started, smi)
         dryrun = roofline_dryrun_phase(dry_started, smi)
         t0 = time.perf_counter()
         cv = cv_future.result()
@@ -3509,7 +3766,13 @@ def run(dry_started, cells_started) -> int:
         "families_mesh_launches": families_mesh["launches"],
         "families_mesh_launch_path": "the 1 x 1 NCCL mesh: whisper-medium "
         "and xlstm-125m through launch.train.main, granite-moe-3b-a800m and "
-        "qwen2-vl-7b (2 layers) through run_training(mesh=make_host_mesh(1))"
+        "qwen2-vl-7b (2 layers) through run_training(mesh=make_host_mesh(1))",
+        "lse_checks": flash_lse["checks"],
+        "lse_max_abs_err": flash_lse["lse_max_abs_err"],
+        "split_checks": flash_split["checks"],
+        "split_max_abs_err": flash_split["max_abs_err"],
+        "split_timing": flash_split["timing"],
+        "context_parallel_host": cp_host["worst"]
         }]}),
         flush=True)
     print(nvidia_smi(), flush=True)

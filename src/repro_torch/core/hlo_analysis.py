@@ -205,7 +205,8 @@ def _plain_versions() -> dict:
     return {
         "flash_attention": lambda a: attention_ref(
             a["q"], a["k"], a["v"], causal=a["causal"],
-            sm_scale=a["sm_scale"]),
+            sm_scale=a["sm_scale"], kv_offset=a["kv_offset"],
+            return_lse=a["return_lse"]),
         "ssd_scan": lambda a: ssd_chunked(a["x"], a["alog"], a["B"], a["C"],
                                           h0=a["h0"], chunk=a["chunk"]),
     }

@@ -12,12 +12,18 @@
 //     s[c] = (q[r] * scale) . k[c]                      over keys c
 //     valid(c) = c < kv_len && (!causal || c <= r + kv_offset)
 //     o[r] = sum_c softmax_valid(s)[c] v[c],   0 where no key is valid
+//     lse[r] = ln sum_c exp(s[c]) over the valid c,  -inf where none is
 // with kv_offset = Skv - Sq for the end-aligned causal mask. q, k and v are
 // f32 or bf16 and are read through the strides the caller passes ((B, H, S,
 // D) views with D contiguous, e.g. transposes of the model's (B, S, H, D));
 // the sums and the online softmax run in f32; o goes out in q's dtype,
 // written through its own strides, so no transposed copy is made around the
 // call. Ragged Sq and Skv are masked on load, nothing is padded in memory.
+// lse, the row log-sum-exp that a merge of attentions over several key
+// shards needs (models/attention.py::merge_partials), is written only when
+// the caller passes a pointer for it: f32 (B, Hq, Sq), contiguous, one
+// store per row from the lane that owns the row after the row sums are
+// reduced; the main loop is the same either way.
 //
 // Two kernels, one per entry point:
 //
@@ -67,6 +73,7 @@
 // give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstdint>
 #include <initializer_list>
@@ -96,9 +103,9 @@ __host__ __device__ constexpr int smem_floats(int D, int DJ) {
 template <typename T, int DJ>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int group,
-                 int Sq, int Skv, int D, int kv_len, int kv_offset,
-                 int causal, float scale,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int group, int Sq, int Skv, int D,
+                 int kv_len, int kv_offset, int causal, float scale,
                  long long q_sb, long long q_sh, long long q_ss,
                  long long k_sb, long long k_sh, long long k_ss,
                  long long v_sb, long long v_sh, long long v_ss,
@@ -236,13 +243,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = tx + 16 * j;
       if (d < D) store(orow + d, acc[i][j] * inv);
     }
+    // m and l are the same on the 16 lanes of the row (q is pre-scaled)
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + row] =
+          l[i] == 0.f ? -CUDART_INF_F : m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int DJ>
-int launch_dj(const void* q, const void* k, const void* v, void* o, int batch,
-              int Hq, int Hkv, int Sq, int Skv, int D, int kv_len,
-              int kv_offset, int causal, float scale, const long long* st,
+int launch_dj(const void* q, const void* k, const void* v, void* o,
+              float* lse, int batch, int Hq, int Hkv, int Sq, int Skv, int D,
+              int kv_len, int kv_offset, int causal, float scale,
+              const long long* st,
               cudaStream_t stream) {
   const int bytes = smem_floats(D, DJ) * 4;
   cudaError_t err = cudaFuncSetAttribute(
@@ -252,16 +264,17 @@ int launch_dj(const void* q, const void* k, const void* v, void* o, int batch,
   dim3 grid((Sq + kBQ - 1) / kBQ, Hq, batch);
   flash_fwd_kernel<T, DJ><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq / Hkv, Sq, Skv, D,
-      kv_len, kv_offset, causal, scale, st[0], st[1], st[2], st[3], st[4],
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq / Hkv, Sq, Skv,
+      D, kv_len, kv_offset, causal, scale, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int Hq, int Hkv, int Sq, int Skv, int D, int kv_len, int kv_offset,
-           int causal, float scale, const long long* strides, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int Hq, int Hkv, int Sq, int Skv, int D, int kv_len,
+           int kv_offset, int causal, float scale, const long long* strides,
+           void* stream) {
   if (batch < 1 || batch > 65535 || Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 ||
       Hq > 65535 || Sq < 1 || Skv < 1 || D < 1 || D > kMaxD || kv_len < 0 ||
       kv_len > Skv)
@@ -269,15 +282,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // accumulator columns per thread: the smallest instantiation holding D
   if (D <= 32)
-    return launch_dj<T, 2>(q, k, v, o, batch, Hq, Hkv, Sq, Skv, D, kv_len,
-                           kv_offset, causal, scale, strides, s);
+    return launch_dj<T, 2>(q, k, v, o, lse, batch, Hq, Hkv, Sq, Skv, D,
+                           kv_len, kv_offset, causal, scale, strides, s);
   if (D <= 64)
-    return launch_dj<T, 4>(q, k, v, o, batch, Hq, Hkv, Sq, Skv, D, kv_len,
-                           kv_offset, causal, scale, strides, s);
+    return launch_dj<T, 4>(q, k, v, o, lse, batch, Hq, Hkv, Sq, Skv, D,
+                           kv_len, kv_offset, causal, scale, strides, s);
   if (D <= 80)
-    return launch_dj<T, 5>(q, k, v, o, batch, Hq, Hkv, Sq, Skv, D, kv_len,
-                           kv_offset, causal, scale, strides, s);
-  return launch_dj<T, 8>(q, k, v, o, batch, Hq, Hkv, Sq, Skv, D, kv_len,
+    return launch_dj<T, 5>(q, k, v, o, lse, batch, Hq, Hkv, Sq, Skv, D,
+                           kv_len, kv_offset, causal, scale, strides, s);
+  return launch_dj<T, 8>(q, k, v, o, lse, batch, Hq, Hkv, Sq, Skv, D, kv_len,
                          kv_offset, causal, scale, strides, s);
 }
 
@@ -287,6 +300,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kMmaThreads = 128;           // one warpgroup: 4 warps x 16 rows
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Offsets, in elements, of the 16-byte piece (row r, columns 8 c..8 c+7) of
 // a 64-row tile in the layouts the wgmma descriptors read (tensor_core.cuh):
@@ -346,8 +360,9 @@ template <int DT>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                     int Hq, int group, int batch, int Sq, int D, int kv_len,
-                     int kv_offset, int causal, float scale_log2, int vec,
+                     float* __restrict__ lse, int Hq, int group, int batch,
+                     int Sq, int D, int kv_len, int kv_offset, int causal,
+                     float scale_log2, int vec,
                      long long q_sb, long long q_sh, long long q_ss,
                      long long k_sb, long long k_sh, long long k_ss,
                      long long v_sb, long long v_sh, long long v_ss,
@@ -489,7 +504,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();         // ... and no warp still reads this stage
   }
 
-  // ---- o = acc / l (0 where no key was valid)
+  // ---- o = acc / l (0 where no key was valid); lse from the lane t4 == 0
+  //      of each row's quad (m is in the log2 domain)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -500,6 +516,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    if (lse != nullptr && t4 == 0)
+      lse[(static_cast<long long>(b) * Hq + h) * Sq + row] =
+          l[r] == 0.f ? -CUDART_INF_F : (m[r] + log2f(l[r])) * kLn2;
     bf16* orow = o + b * o_sb + h * o_sh + row * o_ss;
 #pragma unroll
     for (int j = 0; j < 2 * DT; ++j) {
@@ -520,8 +539,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DT>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
-               int batch, int Hq, int Hkv, int Sq, int D, int kv_len,
-               int kv_offset, int causal, float scale, const long long* st,
+               float* lse, int batch, int Hq, int Hkv, int Sq, int D,
+               int kv_len, int kv_offset, int causal, float scale,
+               const long long* st,
                cudaStream_t stream) {
   const int bytes = 5 * kBQ * 16 * DT * static_cast<int>(sizeof(bf16));
   cudaError_t err = cudaFuncSetAttribute(
@@ -539,16 +559,16 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   flash_fwd_mma_kernel<DT><<<static_cast<unsigned>(blocks), kMmaThreads,
                              bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hq / Hkv, batch,
-      Sq, D, kv_len, kv_offset, causal, scale * kLog2e, vec ? 1 : 0, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11]);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hq / Hkv,
+      batch, Sq, D, kv_len, kv_offset, causal, scale * kLog2e, vec ? 1 : 0,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11]);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int batch, int Hq, int Hkv, int Sq, int Skv, int D,
-                int kv_len, int kv_offset, int causal, float scale,
+                float* lse, int batch, int Hq, int Hkv, int Sq, int Skv,
+                int D, int kv_len, int kv_offset, int causal, float scale,
                 const long long* strides, void* stream) {
   if (batch < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 || Sq < 1 ||
       Skv < 1 || D < 1 || D > kMaxD || kv_len < 0 || kv_len > Skv)
@@ -556,16 +576,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 16-wide steps of D: the smallest instantiation holding D
   if (D <= 32)
-    return launch_mma<2>(q, k, v, o, batch, Hq, Hkv, Sq, D, kv_len,
+    return launch_mma<2>(q, k, v, o, lse, batch, Hq, Hkv, Sq, D, kv_len,
                          kv_offset, causal, scale, strides, s);
   if (D <= 64)
-    return launch_mma<4>(q, k, v, o, batch, Hq, Hkv, Sq, D, kv_len,
+    return launch_mma<4>(q, k, v, o, lse, batch, Hq, Hkv, Sq, D, kv_len,
                          kv_offset, causal, scale, strides, s);
   if (D <= 80)
-    return launch_mma<5>(q, k, v, o, batch, Hq, Hkv, Sq, D, kv_len,
+    return launch_mma<5>(q, k, v, o, lse, batch, Hq, Hkv, Sq, D, kv_len,
                          kv_offset, causal, scale, strides, s);
-  return launch_mma<8>(q, k, v, o, batch, Hq, Hkv, Sq, D, kv_len, kv_offset,
-                       causal, scale, strides, s);
+  return launch_mma<8>(q, k, v, o, lse, batch, Hq, Hkv, Sq, D, kv_len,
+                       kv_offset, causal, scale, strides, s);
 }
 
 }  // namespace
@@ -576,21 +596,24 @@ int flash_max_head_dim() { return kMaxD; }
 
 // Pointers are device pointers; ``strides`` holds 12 element strides:
 // (batch, head, seq) of q, k, v and o, in that order (the head dim is
-// contiguous). Returns 0 or the CUDA error of the launch.
+// contiguous). ``lse`` is null or an f32 (batch, Hq, Sq) contiguous buffer
+// for the rows' log-sum-exp. Returns 0 or the CUDA error of the launch.
 int flash_attn_f32(const void* q, const void* k, const void* v, void* o,
-                   int batch, int Hq, int Hkv, int Sq, int Skv, int D,
-                   int kv_len, int kv_offset, int causal, float scale,
+                   void* lse, int batch, int Hq, int Hkv, int Sq, int Skv,
+                   int D, int kv_len, int kv_offset, int causal, float scale,
                    const long long* strides, void* stream) {
-  return launch<float>(q, k, v, o, batch, Hq, Hkv, Sq, Skv, D, kv_len,
-                       kv_offset, causal, scale, strides, stream);
+  return launch<float>(q, k, v, o, static_cast<float*>(lse), batch, Hq, Hkv,
+                       Sq, Skv, D, kv_len, kv_offset, causal, scale, strides,
+                       stream);
 }
 
 int flash_attn_bf16(const void* q, const void* k, const void* v, void* o,
-                    int batch, int Hq, int Hkv, int Sq, int Skv, int D,
-                    int kv_len, int kv_offset, int causal, float scale,
+                    void* lse, int batch, int Hq, int Hkv, int Sq, int Skv,
+                    int D, int kv_len, int kv_offset, int causal, float scale,
                     const long long* strides, void* stream) {
-  return launch_bf16(q, k, v, o, batch, Hq, Hkv, Sq, Skv, D, kv_len,
-                     kv_offset, causal, scale, strides, stream);
+  return launch_bf16(q, k, v, o, static_cast<float*>(lse), batch, Hq, Hkv,
+                     Sq, Skv, D, kv_len, kv_offset, causal, scale, strides,
+                     stream);
 }
 
 }  // extern "C"

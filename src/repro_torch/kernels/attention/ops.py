@@ -10,7 +10,9 @@ be differentiated at all), so ``flash_attention`` is a
 on the CPU) and whose backward recomputes the plain version under
 ``enable_grad`` and returns its ``torch.autograd.grad``. The forward never
 leaves the kernel; only the backward is plain torch, until a backward
-kernel lands.
+kernel lands. With ``return_lse`` the Function has two outputs, o and the
+rows' log-sum-exp, and its backward takes the gradient of both (a merge of
+attentions over key shards differentiates through lse).
 
 The reference pads Sq and Skv to tile multiples and D to 128 around its TPU
 kernel (``kernels/attention/ops.py``); the Hopper kernel masks ragged tiles
@@ -31,50 +33,59 @@ launches = 0
 _launch_lock = threading.Lock()
 
 
-def _forward(q, k, v, causal: bool, sm_scale: float | None) -> torch.Tensor:
+def _forward(q, k, v, causal: bool, sm_scale: float | None,
+             kv_offset: int | None, return_lse: bool):
     global launches
+    kw = dict(causal=causal, sm_scale=sm_scale, kv_offset=kv_offset,
+              return_lse=return_lse)
     if q.device.type == "cpu":
-        o = attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+        out = attention_ref(q, k, v, **kw)
     elif q.device.type == "cuda":
-        o = flash_attention_kernel(q, k, v, causal=causal, sm_scale=sm_scale)
+        out = flash_attention_kernel(q, k, v, **kw)
         with _launch_lock:
             launches += 1
     else:
         raise ValueError(f"flash_attention runs on the CPU or a CUDA device, "
                          f"not {q.device}")
-    return watch.called("flash_attention", {"q": q, "k": k, "v": v,
-                                            "causal": causal,
-                                            "sm_scale": sm_scale}, o)
+    return watch.called("flash_attention", {"q": q, "k": k, "v": v, **kw},
+                        out)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
+    def forward(ctx, q, k, v, causal, sm_scale, kv_offset, return_lse):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        return _forward(q, k, v, causal, sm_scale)
+        ctx.kw = dict(causal=causal, sm_scale=sm_scale, kv_offset=kv_offset,
+                      return_lse=return_lse)
+        return _forward(q, k, v, causal, sm_scale, kv_offset, return_lse)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads_out):
         need = ctx.needs_input_grad[:3]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n)
                       for t, n in zip(ctx.saved_tensors, need)]
-            o = attention_ref(*inputs, causal=ctx.causal,
-                              sm_scale=ctx.sm_scale)
+            out = attention_ref(*inputs, **ctx.kw)
             grads = iter(torch.autograd.grad(
-                o, [t for t in inputs if t.requires_grad], grad))
-        return (*(next(grads) if n else None for n in need), None, None)
+                out, [t for t in inputs if t.requires_grad], grads_out))
+        return (*(next(grads) if n else None for n in need),) + (None,) * 4
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    sm_scale: float | None = None) -> torch.Tensor:
+                    causal: bool = True, sm_scale: float | None = None,
+                    kv_offset: int | None = None, return_lse: bool = False):
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D), Hq % Hkv == 0. The causal
-    mask is aligned to the end (query row r sees keys up to r + Skv - Sq);
-    a row that sees no key gives 0. ``sm_scale`` defaults to 1/sqrt(D).
-    Returns (B, Hq, Sq, D) in q's dtype; differentiable in q, k and v."""
+    mask is aligned to the end (query row r sees keys up to r + kv_offset,
+    by default r + Skv - Sq; a key shard that starts at position ``start``
+    of the queries' sequence takes ``kv_offset = -start``); a row that sees
+    no key gives 0. ``sm_scale`` defaults to 1/sqrt(D). Returns (B, Hq, Sq,
+    D) in q's dtype; with ``return_lse``, (o, lse), lse (B, Hq, Sq) each
+    row's log-sum-exp of its scaled scores (-inf where it sees no key), in
+    float32 (float64 for float64 inputs on the CPU). Differentiable in q, k
+    and v, through lse too."""
     if q.dim() != 4 or min(q.shape[2], k.shape[2]) < 1:
         raise ValueError(f"flash_attention needs (B, H, S, D) inputs with "
                          f"S >= 1, got q{tuple(q.shape)} k{tuple(k.shape)}")
-    return _FlashAttention.apply(q, k, v, bool(causal), sm_scale)
+    return _FlashAttention.apply(q, k, v, bool(causal), sm_scale,
+                                 None if kv_offset is None else int(kv_offset),
+                                 bool(return_lse))

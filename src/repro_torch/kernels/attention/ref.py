@@ -10,10 +10,15 @@ head h to kv head ``h // (Hq // Hkv)``.
 
 This is the path a CPU tensor takes in ``ops.flash_attention``, the plain
 version the kernel is held to on the card, and the function whose autograd
-gives the kernel's backward. It computes in float32 (two passes: the row
-max over the valid keys, then the sums) and returns q's dtype. Masked
-scores are replaced before ``exp`` and their weights zeroed, so neither the
-output nor its gradient ever sees an inf or a NaN.
+gives the kernel's backward. It computes in float32 (float64 inputs, the
+CPU's float64 parity runs, in float64; two passes: the row max over the
+valid keys, then the sums) and returns q's dtype. Masked scores are
+replaced before ``exp`` and their weights zeroed, so neither the output nor
+its gradient ever sees an inf or a NaN. With ``return_lse`` it also
+returns each row's log-sum-exp, ``lse = ln sum_c exp(s[r, c])`` over the
+valid c (-inf where there is none, with a gradient of 0 there), in the
+compute dtype: what a merge of attentions over several key shards needs
+(``models/attention.py::merge_partials``).
 
 ``attention_online`` is the bf16 kernel's arithmetic in plain torch, for
 the tests: 64-key tiles, S = q . k in f32 then scaled, the online softmax in
@@ -32,11 +37,17 @@ from ..hilo import through_pair
 NEG = -1e30                       # the reference kernel's NEG_INF
 
 
+def _wide(t):
+    """``t`` in the compute dtype: float32, or float64 for float64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def attention_ref(q, k, v, *, causal: bool = True,
                   sm_scale: float | None = None, kv_len: int | None = None,
-                  kv_offset: int | None = None):
+                  kv_offset: int | None = None, return_lse: bool = False):
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D), Hq % Hkv == 0.
-    Returns (B, Hq, Sq, D) in q's dtype."""
+    Returns o (B, Hq, Sq, D) in q's dtype; with ``return_lse``, (o, lse),
+    lse (B, Hq, Sq)."""
     Sq, D = q.shape[2], q.shape[3]
     Hq, Hkv, Skv = q.shape[1], k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -44,9 +55,9 @@ def attention_ref(q, k, v, *, causal: bool = True,
         sm_scale = 1.0 / math.sqrt(D)
     kv_len = Skv if kv_len is None else kv_len
     kv_offset = Skv - Sq if kv_offset is None else kv_offset
-    qf = q.float() * sm_scale
-    kf = k.float().repeat_interleave(g, dim=1)
-    vf = v.float().repeat_interleave(g, dim=1)
+    qf = _wide(q) * sm_scale
+    kf = _wide(k).repeat_interleave(g, dim=1)
+    vf = _wide(v).repeat_interleave(g, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
     ki = torch.arange(Skv, device=q.device)
     valid = (ki < kv_len)[None, :]
@@ -58,7 +69,13 @@ def attention_ref(q, k, v, *, causal: bool = True,
     p = torch.exp(s - m).masked_fill(~valid, 0.0)
     den = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
-    return (o / torch.where(den == 0, 1.0, den)).to(q.dtype)
+    empty = den == 0                                 # no valid key
+    den = torch.where(empty, 1.0, den)
+    o = (o / den).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(empty, -math.inf, m + torch.log(den))
+    return o, lse[..., 0]
 
 
 def attention_online(q, k, v, *, causal: bool = True,

@@ -16,6 +16,15 @@ float32, and a float32 softmax, as the reference's ``_sdpa_block``. The
 products of two bf16 values are exact in float32, so the operands are
 widened to float32 and multiplied there; the port keeps float32 matmuls off
 TF32 (torch's default for matmuls).
+
+Context-parallel attention: on a mesh whose model axis divides neither
+head count, ``_qkv`` shards K and V over the sequence (the reference's
+fallback), and ``attend_train`` and ``attend_prefill`` run on each rank's
+own key shard (``_on_key_shards``): every query of the rank's batch shard
+against S/m keys, through B2 or ``_sdpa`` with the causal mask shifted to
+the shard's start, each returning its rows' log-sum-exp; the ranks' partial
+softmaxes are then merged (``merge_partials``), and nothing gathers K/V.
+The decode step on a sequence-sharded KV cache merges the same way.
 """
 from __future__ import annotations
 
@@ -23,12 +32,12 @@ import math
 from functools import partial
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.attention import flash_attention
 from ..sharding.context import (constrain, current_ctx, on_mesh,
-                                product_on_shards)
+                                product_on_shards, reduced)
 from .common import (EMBED, HEAD_DIM, HEADS, KV_HEADS, ParamSpec, apply_rope,
                      f32)
 
@@ -58,6 +67,18 @@ def _proj(x, w):
     return (x @ w.reshape(d, H * Dh).to(x.dtype)).reshape(*x.shape[:2], H, Dh)
 
 
+def _kv_seq_fallback(cfg, seq: int) -> bool:
+    """The reference's context-parallel fallback: inside a scope whose
+    model axis divides neither the q- nor the kv-head count (and does
+    divide the sequence), K/V shard the sequence instead of head_dim."""
+    ctx = current_ctx()
+    if ctx is None:
+        return False
+    msize = dict(zip(ctx[0].mesh_dim_names, ctx[0].shape)).get("model", 1)
+    return bool(msize > 1 and cfg.n_kv_heads % msize and cfg.n_heads % msize
+                and seq % msize == 0)
+
+
 def _qkv(cfg, p, x):
     dt = x.dtype
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
@@ -67,15 +88,8 @@ def _qkv(cfg, p, x):
         v = v + p["bv"].to(dt)
     q = constrain(q, ("act_batch", "act_seq", "act_heads", None))
     kv_axes = ("act_batch", "act_seq", "act_kv_heads", None)
-    ctx = current_ctx()
-    if ctx is not None:
-        # the reference's context-parallel fallback: when neither the q-
-        # nor the kv-head count divides the model axis, shard the KV
-        # sequence instead of head_dim
-        msize = dict(zip(ctx[0].mesh_dim_names, ctx[0].shape)).get("model", 1)
-        if (msize > 1 and cfg.n_kv_heads % msize and cfg.n_heads % msize
-                and k.shape[1] % msize == 0):
-            kv_axes = ("act_batch", "act_kv_seq", "act_kv_heads", None)
+    if _kv_seq_fallback(cfg, k.shape[1]):
+        kv_axes = ("act_batch", "act_kv_seq", "act_kv_heads", None)
     k = constrain(k, kv_axes)
     v = constrain(v, kv_axes)
     return q, k, v
@@ -94,43 +108,86 @@ Q_CHUNK = 512   # query-chunked attention: caps the f32 score buffer at
 
 
 def _sdpa_block(qg, k, v, *, causal: bool, q_offset: int, kv_valid_len,
-                scale: float):
+                scale: float, return_lse: bool = False):
     """qg (B,qc,Hkv,g,Dh); k/v (B,Skv,Hkv,Dh), all in the compute dtype.
-    Products accumulate in f32; softmax and masking in f32."""
+    Products accumulate in f32; softmax and masking in f32. With
+    ``return_lse`` also each row's log-sum-exp over its valid keys,
+    (B,qc,Hkv,g), -inf where it has none."""
     Skv = k.shape[1]
     qc = qg.shape[1]
     s = torch.einsum("bqhgd,bkhd->bhgqk", f32(qg), f32(k)) * scale
+    valid = None
     if causal:
         qi = torch.arange(qc, device=s.device)[:, None] + q_offset
         ki = torch.arange(Skv, device=s.device)[None, :]
-        s = torch.where(qi >= ki, s, -1e30)
+        valid = qi >= ki
     if kv_valid_len is not None:
-        ki = torch.arange(Skv, device=s.device)
-        s = torch.where(ki < kv_valid_len, s, -1e30)
+        keep = torch.arange(Skv, device=s.device) < kv_valid_len
+        valid = keep if valid is None else valid & keep
+    if valid is not None:
+        s = torch.where(valid, s, -1e30)
     pr = torch.softmax(s, dim=-1)
-    return torch.einsum("bhgqk,bkhd->bqhgd", f32(pr.to(v.dtype)), f32(v))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", f32(pr.to(v.dtype)), f32(v))
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1)
+    if valid is not None:                    # rows that see no key
+        lse = torch.where(valid.any(-1), lse, -math.inf)
+    return o, lse.permute(0, 3, 1, 2)
 
 
-def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_valid_len=None):
+def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_valid_len=None,
+          return_lse: bool = False):
     """q (B,Sq,H,Dh); k/v (B,Skv,Hkv,Dh). Grouped attention; queries
     processed in chunks of Q_CHUNK (exact: softmax is per query over the
-    full key range) so the score buffer never holds S^2."""
+    full key range) so the score buffer never holds S^2. Query row r sees
+    the keys c <= r + q_offset (causal) and c < kv_valid_len. With
+    ``return_lse``, (o, lse): lse (B,Sq,H) float32, each row's log-sum-exp
+    of its scaled scores, -inf where it sees no key."""
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
     # the reference's f32 scale: 1/sqrt(Dh) rounded to float32
     scale = float(torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32))
     qg = q.reshape(B, Sq, Hkv, g, Dh).to(k.dtype)
-    if Sq <= Q_CHUNK or Sq % Q_CHUNK != 0:
-        o = _sdpa_block(qg, k, v, causal=causal, q_offset=q_offset,
-                        kv_valid_len=kv_valid_len, scale=scale)
-    else:
-        o = torch.cat([
-            _sdpa_block(qg[:, i:i + Q_CHUNK], k, v, causal=causal,
-                        q_offset=q_offset + i, kv_valid_len=kv_valid_len,
-                        scale=scale)
-            for i in range(0, Sq, Q_CHUNK)], dim=1)
-    return o.reshape(B, Sq, H, Dh).to(q.dtype)
+    starts = ([0] if Sq <= Q_CHUNK or Sq % Q_CHUNK != 0
+              else range(0, Sq, Q_CHUNK))
+    qc = Sq if len(starts) == 1 else Q_CHUNK
+    parts = [_sdpa_block(qg[:, i:i + qc], k, v, causal=causal,
+                         q_offset=q_offset + i, kv_valid_len=kv_valid_len,
+                         scale=scale, return_lse=return_lse)
+             for i in starts]
+    if not return_lse:
+        return torch.cat(parts, dim=1).reshape(B, Sq, H, Dh).to(q.dtype)
+    o, lse = (torch.cat(t, dim=1) for t in zip(*parts))
+    return o.reshape(B, Sq, H, Dh).to(q.dtype), lse.reshape(B, Sq, H)
+
+
+def merge_partials(o, lse, reduce):
+    """Attention over the union of several sets of keys, from each set's
+    own: ``o`` (..., Dh) the attention over one set, ``lse`` (...) each
+    row's log-sum-exp of its scaled scores over that set (-inf where it
+    sees none of its keys); ``reduce(t, op)`` combines a tensor over the
+    sets with ``op`` "max" or "sum": over a stacked dimension on one device
+    (``stacked``), over the ranks that hold the sets on a mesh. Every row
+    must see a key in some set. Returns o in its own dtype:
+
+        M = max_r lse_r           (held constant: softmax is shift-free)
+        w_r = exp(lse_r - M)      (0 where lse_r = -inf)
+        o = sum_r w_r o_r / sum_r w_r
+
+    Its gradient runs through both sums and through each lse_r."""
+    m = reduce(lse.detach(), "max")
+    w = torch.exp(lse - m)
+    return (reduce(w[..., None] * o, "sum")
+            / reduce(w, "sum")[..., None]).to(o.dtype)
+
+
+def stacked(t, op: str):
+    """``merge_partials``'s ``reduce`` over dimension 0, the key sets
+    stacked on one device (on a mesh, that dimension sharded over the
+    ranks)."""
+    return t.amax(0) if op == "max" else t.sum(0)
 
 
 def _attend_core(cfg, q, k, v, cos, sin):
@@ -174,15 +231,82 @@ def _core_on_shards(core, q, k, v, *tables, n_out: int = 1):
     return fn, (q, k, v, *tables)
 
 
+def _key_part(kernel: bool, start: int, q, k, v, cos_q, sin_q, cos_k, sin_k):
+    """One rank's share of context-parallel attention: every query (q, the
+    whole sequence) against this rank's keys, which start at position
+    ``start``. Each is rotated by its own positions' rows of the tables,
+    then B2 (``kernel``) or the plain ``_sdpa`` runs with the causal mask
+    shifted by ``start`` (the queries before it see none of these keys).
+    Returns (o, lse) with a leading dimension of 1, the stack that
+    ``merge_partials`` reduces, and the rotated k."""
+    q = apply_rope(q, cos_q, sin_q)
+    k = apply_rope(k, cos_k, sin_k)
+    if kernel:
+        o, lse = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True,
+                                 kv_offset=-start, return_lse=True)
+        o, lse = o.transpose(1, 2), lse.transpose(1, 2)
+    else:
+        o, lse = _sdpa(q, k, v, causal=True, q_offset=-start,
+                       return_lse=True)
+    return o[None], lse[None], k
+
+
+def _on_key_shards(kernel: bool, q, k, v, cos, sin):
+    """Causal attention of the DTensors q, k and v whose K/V shard the
+    sequence over some mesh dimension (``_kv_seq_fallback``), as the
+    reference's GSPMD partitions it: each rank runs ``_key_part`` on its own
+    key shard and every query of its batch shard (``local_map``), and the
+    ranks' partial softmaxes are merged (``merge_partials``, two all-reduces
+    of (B, S, H) and one of (B, S, H, Dh) over that dimension). K/V keep
+    their shard; q is replicated there (under ``sp`` its sequence is
+    gathered, the reference's trade), and its gradient there is a partial
+    sum. Every other mesh dimension keeps the batch shard or replicates.
+    Returns (o, the rotated k placed as k)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = q.device_mesh
+    q_pl, kv_pl, q_grad, rope_q, rope_k, stack_pl = ([] for _ in range(6))
+    for a, b in zip(q.placements, k.placements):
+        if b == Shard(1):                    # the keys' sequence
+            pl = (Replicate(), b, Partial(), Replicate(), b, Shard(0))
+        elif a == Shard(0):                  # the batch
+            pl = (a, a, a, a, a, Shard(1))
+        else:
+            pl = (Replicate(),) * 6
+        for dst, x in zip((q_pl, kv_pl, q_grad, rope_q, rope_k, stack_pl),
+                          pl):
+            dst.append(x)
+    _, offset = compute_local_shape_and_global_offset(k.shape, mesh, kv_pl)
+    fn = local_map(partial(_key_part, kernel, offset[1]),
+                   out_placements=(stack_pl, stack_pl, kv_pl),
+                   in_placements=(q_pl, kv_pl, kv_pl) + (rope_q,) * 2
+                   + (rope_k,) * 2,
+                   in_grad_placements=(q_grad, kv_pl, kv_pl) + (rope_q,) * 2
+                   + (rope_k,) * 2, device_mesh=mesh)
+    tables = [on_mesh(t, mesh) for t in (cos, sin)]
+    o, lse, k = fn(q.redistribute(mesh, q_pl), k.redistribute(mesh, kv_pl),
+                   v.redistribute(mesh, kv_pl),
+                   *(t.redistribute(mesh, rope_q) for t in tables),
+                   *(t.redistribute(mesh, rope_k) for t in tables))
+    return merge_partials(o, lse, lambda t, op: reduced(stacked(t, op))), k
+
+
 def attend_train(cfg, p, x, cos, sin):
     """Causal self-attention over the whole sequence, no cache
-    (``_attend_core``; on a mesh, on each rank's shards)."""
+    (``_attend_core``; on a mesh, on each rank's shards, and on each rank's
+    key shard under the context-parallel fallback)."""
     q, k, v = _qkv(cfg, p, x)
-    core = partial(_attend_core, cfg)
-    args = (q, k, v, cos, sin)
-    if isinstance(q, DTensor):
-        core, args = _core_on_shards(core, *args)
-    out = _out(core(*args), p["wo"])
+    if isinstance(q, DTensor) and _kv_seq_fallback(cfg, k.shape[1]):
+        o, _ = _on_key_shards(cfg.use_pallas, q, k, v, cos, sin)
+    else:
+        core = partial(_attend_core, cfg)
+        args = (q, k, v, cos, sin)
+        if isinstance(q, DTensor):
+            core, args = _core_on_shards(core, *args)
+        o = core(*args)
+    out = _out(o, p["wo"])
     return constrain(out, ("act_batch", "act_seq", "act_embed"))
 
 
@@ -197,8 +321,13 @@ def _prefill_core(q, k, v, cos, sin):
 def attend_prefill(cfg, p, x, cos, sin):
     """Returns (out, (k, v)): the K/V of these S positions, in the
     activation dtype; on a mesh the attention runs on each rank's shards
-    (``_core_on_shards``)."""
+    (``_core_on_shards``), or on each rank's key shard under the
+    context-parallel fallback, whose K/V then keep their sequence shard
+    (the KV cache's ``cache_seq`` layout)."""
     q, k, v = _qkv(cfg, p, x)
+    if isinstance(q, DTensor) and _kv_seq_fallback(cfg, k.shape[1]):
+        o, k = _on_key_shards(False, q, k, v, cos, sin)
+        return _out(o, p["wo"]), (k, v)
     core, args = _prefill_core, (q, k, v, cos, sin)
     if isinstance(q, DTensor):
         core, args = _core_on_shards(core, *args, n_out=2)
@@ -230,9 +359,9 @@ def _decode_local(pos, start, seq_groups, q, k, v, k_cache, v_cache, cos,
     holds positions ``start`` onwards: the rank that holds ``pos`` writes
     the token's K/V there in place. Without ``seq_groups`` this is the
     one-device step; with them (the cache's sequence sharded over those
-    process groups) each rank attends over its own positions and the
-    softmax's maximum, sum and weighted values are all-reduced over the
-    groups."""
+    process groups) each rank attends over its own positions and the ranks'
+    partial softmaxes are merged by all-reduces over the groups
+    (``merge_partials``)."""
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     n = k_cache.shape[1]
@@ -247,20 +376,10 @@ def _decode_local(pos, start, seq_groups, q, k, v, k_cache, v_cache, cos,
         for g in seq_groups:
             t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
         return t
-    B, _, H, Dh = q.shape
-    Hkv = k_cache.shape[2]
-    scale = float(torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32))
-    qg = q.reshape(B, 1, Hkv, H // Hkv, Dh).to(k_cache.dtype)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", f32(qg), f32(k_cache)) * scale
-    ki = torch.arange(start, start + n, device=s.device)
-    s = torch.where(ki <= pos, s, -1e30)
-    m = reduce(s.amax(dim=-1, keepdim=True), "max")
-    e = torch.exp(s - m)
-    total = reduce(e.sum(dim=-1, keepdim=True), "sum")
-    o = reduce(torch.einsum("bhgqk,bkhd->bqhgd", f32(e.to(v_cache.dtype)),
-                            f32(v_cache)), "sum")
-    o = o / total.permute(0, 3, 1, 2, 4)
-    return o.reshape(B, 1, H, Dh).to(q.dtype)
+    # this rank's positions start onwards: those up to pos are valid
+    o, lse = _sdpa(q, k_cache, v_cache, causal=False,
+                   kv_valid_len=pos + 1 - start, return_lse=True)
+    return merge_partials(o, lse, reduce)
 
 
 def _decode_on_shards(q, k, v, k_cache, v_cache, cos, sin, pos: int):

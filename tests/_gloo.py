@@ -649,3 +649,92 @@ def project_inputs():
     rng = np.random.default_rng(0)
     return tuple(torch.from_numpy(rng.standard_normal(s))
                  for s in ((4, 8, 6), (6, 10), (4, 8, 10)))
+
+
+# context-parallel attention (models/attention.py::_on_key_shards): F1's
+# reduced smollm-360m (3 query heads over 1 KV head, so that neither count
+# divides the model axis of 2 and K/V shard the sequence), in float64, one
+# attention layer on x (CP_BATCH, CP_SEQ, d) from numpy's generator
+CP_OVERRIDES = dict(n_heads=3, n_kv_heads=1, dtype="float64")
+CP_STRATEGIES = ("2d", "tp", "zero3", "sp")
+CP_BATCH, CP_SEQ = 4, 16
+CP_RTOL = 1e-9
+
+
+def attention_run(mesh, strategy: str = "2d", seed: int = 0) -> dict:
+    """One attention layer of CP_OVERRIDES's config, its weights and x
+    placed by ``strategy``'s rules on ``mesh`` (None: one device):
+    ``attend_train`` through B2 (its plain version here) and through the
+    plain ``_sdpa``, each with the gradients of x and of the weights under
+    the loss sum(out * g), and ``attend_prefill``'s output, K and V; all
+    whole, float64 numpy, with the placements of the prefill's K."""
+    from repro_torch.models.attention import (attend_prefill, attend_train,
+                                              attn_specs)
+    from repro_torch.models.common import (init_params, logical_axes,
+                                           rope_cos_sin, tree_map)
+    from repro_torch.sharding.context import activation_sharding
+    from repro_torch.sharding.rules import (STRATEGIES, distribute,
+                                            distribute_tree, placements,
+                                            spec_for_axes, tree_shardings)
+
+    cfg = mesh_config("smollm-360m", **CP_OVERRIDES)
+    specs = attn_specs(cfg)
+    params = tree_map(lambda _, t: t.double(), init_params(specs, seed, "cpu"))
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((CP_BATCH, CP_SEQ,
+                                              cfg.d_model)))
+    g = torch.from_numpy(rng.standard_normal(x.shape))
+    pos = torch.arange(CP_SEQ)[None].expand(CP_BATCH, CP_SEQ)
+    cos, sin = rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    scope = contextlib.nullcontext()
+    if mesh is not None:
+        params = distribute_tree(params, mesh, tree_shardings(
+            logical_axes(specs), mesh, strategy, params))
+        x = distribute(x, mesh, placements(spec_for_axes(
+            ("act_batch", "act_seq", "act_embed"), STRATEGIES[strategy],
+            mesh, tuple(x.shape)), mesh))
+        scope = activation_sharding(mesh, strategy)
+    out = {}
+    with scope:
+        for name, c in (("train", cfg), ("train_plain",
+                                         replace(cfg, use_pallas=False))):
+            w = {k: t.detach().requires_grad_() for k, t in params.items()}
+            xg = x.detach().requires_grad_()
+            y = _full(attend_train(c, w, xg, cos, sin))
+            grads = torch.autograd.grad((y * g).sum(), [xg, *w.values()])
+            out[name] = {"out": _whole(y), "grads": dict(zip(
+                ["x", *w], (_whole(t) for t in _full(grads))))}
+        with torch.no_grad():
+            y, (k, v) = attend_prefill(cfg, params, x, cos, sin)
+        out["prefill"] = _whole({"out": y, "k": k, "v": v})
+        out["prefill_k_placements"] = [str(p) for p in
+                                       getattr(k, "placements", ())]
+    return out
+
+
+def context_parallel(rank, world, out, checks, strategies: tuple):
+    """``attention_run`` on a 2 x 2 ("data", "model") mesh under each
+    strategy."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    for strategy in strategies:
+        checks(strategy, lambda strategy=strategy: attention_run(mesh,
+                                                                  strategy))
+
+
+def context_parallel_apart(got: dict, want: dict) -> dict:
+    """{array path: its largest |got - want| in units of CP_RTOL (|want| +
+    the array's largest |want|)}: each must be at most 1."""
+    runs = ("train", "train_plain", "prefill")
+    a = _by_path({k: got[k] for k in runs})
+    b = _by_path({k: want[k] for k in runs})
+    if sorted(a) != sorted(b):
+        raise ValueError(f"arrays {sorted(a)} against {sorted(b)}")
+    out = {}
+    for k, w in b.items():
+        w = np.asarray(w, dtype=np.float64)
+        tol = (CP_RTOL * (np.abs(w) + np.abs(w).max())
+               + np.finfo(np.float64).tiny)
+        out[k] = float((np.abs(np.asarray(a[k]) - w) / tol).max())
+    return out
