@@ -172,6 +172,11 @@ Phases, one JSON line each:
                of both paths side by side (DTensor's host cost); one f32 step
                (1 x 1024) on each path, held to DENSE_F32_REL if a
                non-causal fault through the mesh lands 5x above it
+  loss_shards  fault F7's loss on the 1 x 1 NCCL mesh: ``cross_entropy_loss``
+               on DTensor logits (``cross_entropy_on_shards``) beside the
+               plain path on smollm-360m's f32 logits (8, 1024, 49152):
+               loss and logits gradient held at rtol 1e-5 (bitwise
+               reported); each one's peak allocation over its input and ms
   dp_compressed  ``train.grad.make_dp_grad_fn`` on NCCL at world size 1 over
                smollm-360m's loss (1 x 1024): the int8 + error-feedback
                gradients' relative error against the uncompressed ones
@@ -217,7 +222,9 @@ Phases, one JSON line each:
                pod16x16 under 2d, in a subprocess off the card started
                first and running beside every phase up to the CV worker's
                (read after lm_families_mesh): status ok, its row and
-               seconds
+               seconds; its counted peak a rank under 4 GiB and
+               ``fits_hbm`` held (fault F7), temporaries and collective
+               bytes by op reported
   mesh_cells_host  fault F6's 28 training cells (``F6_CELLS``: every
                family's ``train_4k`` step at full width, depth cut as
                ``tests/_mesh_cells.py`` cuts it, on meta tensors over a
@@ -412,6 +419,17 @@ AUTOTUNE_ARCH, AUTOTUNE_BATCH, AUTOTUNE_SEQ, AUTOTUNE_STEPS = (
     "smollm-360m", 8, 1024, 2)
 DRYRUN_CELL = ("smollm-360m", "train_4k", "pod16x16", "2d")
 DRYRUN_TIMEOUT_S = 900
+# fault F7: the dry-run cell's counted live-bytes peak a rank must fit under
+# DRYRUN_PEAK_MAX (the reference's record: 1.86e9 bytes; the parent port's
+# 1.23e11, the whole microbatch's logits gradient on every rank), and its
+# fits_hbm must hold
+DRYRUN_PEAK_MAX = 4 * 2 ** 30
+# the LM loss on the 1 x 1 NCCL mesh (cross_entropy_on_shards) beside the
+# plain cross_entropy_loss on the same f32 logits, smollm-360m's
+# (8, 1024, vocab 49152): loss and logits gradient held at LOSS_RTOL (plus
+# LOSS_RTOL of the gradient's largest magnitude)
+LOSS_SHAPE = (8, 1024, 49152)
+LOSS_RTOL = 1e-5
 
 # fault F6 (ROADMAP section 3): the training cells that torch 2.11's DTensor
 # refused (a sequence-sharded view inside x @ w) while 2.13's ran them,
@@ -3206,9 +3224,86 @@ def roofline_dryrun_phase(started: tuple, smi: str) -> dict:
     out = {"tag": rec["tag"], "status": rec["status"], "row": rep.row(),
            "counting_s": rec["lower_s"], "seconds": seconds,
            "hlo_flops": rep.hlo_flops, "xla_flops": rep.xla_flops,
+           "hlo_bytes": rep.hlo_bytes,
            "collective_bytes": rep.collective_bytes,
-           "peak_bytes": rep.peak_bytes, "features": rec["features"]}
+           "collective_breakdown": rep.collective_breakdown,
+           "peak_bytes": rep.peak_bytes, "temp_bytes": rep.temp_bytes,
+           "arg_bytes": rep.arg_bytes, "fits_hbm": rep.fits_hbm,
+           "peak_max": DRYRUN_PEAK_MAX, "features": rec["features"]}
     emit("roofline_dryrun", **out, card=smi)
+    if not (rep.fits_hbm and rep.peak_bytes < DRYRUN_PEAK_MAX):
+        raise AssertionError(f"the dry-run cell counts a peak of "
+                             f"{rep.peak_bytes} bytes a rank (fits_hbm "
+                             f"{rep.fits_hbm}), limit {DRYRUN_PEAK_MAX}")
+    return out
+
+
+def loss_shards_phase(dev, smi: str) -> dict:
+    """Fault F7's loss on the 1 x 1 NCCL mesh: ``cross_entropy_loss`` on
+    DTensor logits (``sharding.context.cross_entropy_on_shards``, the
+    vocabulary "sharded" over the model axis, every collective trivial)
+    beside the plain path on the same f32 tensor, loss and logits gradient
+    held at LOSS_RTOL; for each, the peak the forward and backward allocate
+    over their inputs (``torch.cuda.max_memory_allocated``) and the ms of
+    one forward and backward (CUDA events)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import cross_entropy_loss
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(1, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S, V = LOSS_SHAPE
+    x = 3.0 * torch.randn(LOSS_SHAPE, device=dev, generator=gen)
+    y = torch.randint(0, V, (B, S), device=dev, generator=gen)
+    on_mesh = (DTensor.from_local(x, mesh, [Shard(0), Shard(2)],
+                                  run_check=False),
+               DTensor.from_local(y, mesh, [Shard(0), Replicate()],
+                                  run_check=False))
+
+    def run(logits, labels):
+        a = logits.detach().requires_grad_()
+        loss = cross_entropy_loss(a, labels)
+        return loss.detach(), torch.autograd.grad(loss, a)[0]
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    got = {}
+    for name, args in (("plain", (x, y)), ("shards", on_mesh)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grad = run(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        got[name] = {"loss": local(loss), "grad": local(grad),
+                     "peak_bytes": peak,
+                     "ms": cuda_ms(lambda args=args: run(*args), 5, 1)}
+    plain, shards = got["plain"], got["shards"]
+    loss_apart = float(abs(shards["loss"] - plain["loss"])
+                       / abs(plain["loss"]))
+    grad_err = float((shards["grad"] - plain["grad"]).abs().max())
+    grad_max = float(plain["grad"].abs().max())
+    out = {"shape": LOSS_SHAPE, "mesh": {"shape": (1, 1), "backend": "nccl"},
+           "loss": {k: float(v["loss"]) for k, v in got.items()},
+           "loss_apart": loss_apart, "grad_max_abs_err": grad_err,
+           "grad_max": grad_max, "rtol": LOSS_RTOL,
+           "bitwise": bool(torch.equal(shards["loss"], plain["loss"])
+                           and torch.equal(shards["grad"], plain["grad"])),
+           "peak_bytes": {k: v["peak_bytes"] for k, v in got.items()},
+           "ms": {k: v["ms"] for k, v in got.items()},
+           "seconds": time.perf_counter() - t_phase}
+    emit("loss_shards", **out, card=smi)
+    torch.testing.assert_close(shards["loss"], plain["loss"],
+                               rtol=LOSS_RTOL, atol=0)
+    torch.testing.assert_close(shards["grad"], plain["grad"],
+                               rtol=LOSS_RTOL, atol=LOSS_RTOL * grad_max)
+    del got, plain, shards, x, y, on_mesh
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3678,6 +3773,7 @@ def run(dry_started, cells_started, cp_started) -> int:
         torch.cuda.empty_cache()
         dense = lm_dense_train_phase(dev, smi)
         mesh_parity_phase(dev, dense, smi)
+        loss_shards_phase(dev, smi)
         dp_compressed_phase(dev, smi)
         autotuned = roofline_autotune_phase(dev, smi)
         dist.destroy_process_group()
@@ -3696,7 +3792,8 @@ def run(dry_started, cells_started, cp_started) -> int:
              "bound_ms", "step_ms", "counted_peak_bytes",
              "torch_peak_bytes")},
          autotune={k: autotuned[k] for k in ("pick", "ranked")},
-         dryrun={k: dryrun[k] for k in ("status", "row", "seconds")},
+         dryrun={k: dryrun[k] for k in ("status", "row", "seconds",
+                                        "peak_bytes", "fits_hbm")},
          card=smi)
     emit("ground_truth_cv", rows=cv[truth["device"]]["rows"],
          grid=CV_GRID, config=CV_CONFIG, waited_s=time.perf_counter() - t0,

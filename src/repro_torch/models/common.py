@@ -14,10 +14,11 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..core.forest_torch import resolve_device
-from ..sharding.context import constrain, in_scope
+from ..sharding.context import cross_entropy_on_shards, in_scope
 
 # ---------------------------------------------------------------- param specs
 
@@ -222,10 +223,11 @@ def causal_mask(sq: int, skv: int, offset: int = 0, device=None):
 def cross_entropy_loss(logits, labels, z_loss: float = 1e-4):
     """Mean next-token cross entropy in float32, plus ``z_loss`` times the
     mean squared log-normalizer (it keeps large vocab heads stable).
-    logits (B, S, V), labels (B, S)."""
-    # on a mesh the vocab shards are gathered first: DTensor's masked
-    # gather over a vocab-sharded dim does not survive the indexing below
-    lf = constrain(f32(logits), ("act_batch", "act_seq", None))
+    logits (B, S, V), labels (B, S). On DTensor logits each rank computes
+    it on its own vocabulary shard (``cross_entropy_on_shards``)."""
+    if isinstance(logits, DTensor):
+        return cross_entropy_on_shards(logits, labels, z_loss)
+    lf = f32(logits)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     ce = (lse - gold).mean()

@@ -28,6 +28,11 @@ Every other projection of an activation by a 2-D weight goes through
 ``project``: torch 2.11's DTensor refuses the matmul's view of an x whose
 sequence is sharded, or of such a gradient (fault F6), and ``project``
 keeps both off that view.
+
+The LM loss on DTensor logits runs on each rank's vocabulary shard
+(``cross_entropy_on_shards``): the ranks exchange only per-row values,
+where DTensor's own gather and its backward would hold the whole
+vocabulary, and the whole microbatch's gradient, on every rank (fault F7).
 """
 from __future__ import annotations
 
@@ -35,7 +40,10 @@ import contextlib
 import contextvars
 
 import torch
+from torch.distributed import _functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 
 from .rules import STRATEGIES, placements, spec_for_axes
@@ -225,39 +233,185 @@ class _GradRows(torch.autograd.Function):
 def embedding_rows(table, tokens):
     """``table[tokens]``: the rows of an embedding table (V, d) for integer
     tokens of any shape. On a DTensor table the lookup and its gradient
-    run on local tensors (``_Rows``), as DTensor's own indexing runs them;
-    DTensor's rule for the indexing's backward (``index_put``) fails once
-    the tokens are sharded under torch 2.11 ("Shard dim -1 ... must be
-    normalized")."""
+    run on local tensors (``_Rows``): DTensor's rule for the indexing's
+    backward (``index_put``) fails once the tokens are sharded under torch
+    2.11 ("Shard dim -1 ... must be normalized", fault F5). No rank holds
+    the whole table or another rank's rows (fault F8)."""
     if not isinstance(table, DTensor):
         return table[tokens.long()]
     return _Rows.apply(table, on_mesh(tokens, table.device_mesh))
 
 
 class _Rows(torch.autograd.Function):
-    """Forward: every rank gathers the table and the tokens, looks up the
-    whole batch, and the rows take the tokens' placements. Backward: the
-    rows' gradient is gathered where it is sharded and kept a partial sum
-    where it is one, and each rank accumulates every token's rows into a
-    zero table in the tokens' order: the table's gradient, partial where
-    the rows' gradient was."""
+    """Forward, per mesh dimension: a vocabulary shard of the table stays
+    where it is and the tokens are gathered there, so each rank looks its
+    tokens up in its own rows (a token outside its range gives a zero row)
+    and the rows are summed over that dimension, exactly (each token's row
+    comes from one rank); any other shard of the table is gathered and the
+    tokens keep theirs. The rows take the tokens' placements. Backward:
+    the rows' gradient is made whole over the vocabulary's mesh dimensions
+    and kept a partial sum where it is one elsewhere; each rank accumulates
+    its own tokens' rows that fall in its range into a zero table of its
+    shard in the tokens' order, summed over the mesh dimensions that shard
+    the tokens: the table's gradient, its vocabulary sharded as the
+    table's, partial where the rows' gradient was (as DTensor's own
+    gradients are; torch 2.11 cannot redistribute a table's shard into a
+    partial sum, so no redistribution of the table sits in the graph)."""
 
     @staticmethod
     def forward(ctx, table, tokens):
         mesh = table.device_mesh
-        whole = [Replicate()] * mesh.ndim
-        t = tokens.redistribute(mesh, whole).to_local().long()
-        ctx.save_for_backward(t)
-        ctx.shape = tuple(table.shape)
-        rows = table.redistribute(mesh, whole).to_local()[t]
-        return DTensor.from_local(rows, mesh, whole, run_check=False
-                                  ).redistribute(mesh, tokens.placements)
+        tok_pl = [Shard(b.dim % tokens.ndim) if isinstance(b, Shard)
+                  else Replicate() for b in tokens.placements]
+        vocab = [isinstance(a, Shard) and a.dim % table.ndim == 0
+                 for a in table.placements]
+        table_pl = [Shard(0) if v else Replicate() for v in vocab]
+        lookup_pl = [Replicate() if v else b for v, b in zip(vocab, tok_pl)]
+        table = table.redistribute(mesh, table_pl)
+        _, offset = compute_local_shape_and_global_offset(table.shape, mesh,
+                                                          table_pl)
+        w = table.to_local()
+        t = tokens.redistribute(mesh, lookup_pl).to_local().long() - offset[0]
+        inside = (t >= 0) & (t < w.shape[0])
+        t = torch.where(inside, t, 0)
+        rows = w[t]
+        if any(vocab):
+            rows.masked_fill_(~inside[..., None], 0)
+        ctx.save_for_backward(t, inside)
+        ctx.vocab, ctx.lookup = vocab, lookup_pl
+        ctx.shape, ctx.global_shape = tuple(w.shape), tuple(table.shape)
+        rows = _from_local(rows, mesh, [Partial() if v else b for v, b in
+                                        zip(vocab, lookup_pl)],
+                           (*tokens.shape, table.shape[1]))
+        return rows.redistribute(mesh, tok_pl)
 
     @staticmethod
     def backward(ctx, grad):
-        t, = ctx.saved_tensors
+        t, inside = ctx.saved_tensors
         mesh = grad.device_mesh
-        keep = [a if a.is_partial() else Replicate() for a in grad.placements]
+        keep = [Replicate() if v else (a if a.is_partial() else b)
+                for v, a, b in zip(ctx.vocab, grad.placements, ctx.lookup)]
         g = grad.redistribute(mesh, keep).to_local()
+        if any(ctx.vocab):
+            g = g.masked_fill(~inside[..., None], 0)
         table = g.new_zeros(ctx.shape).index_put_((t,), g, accumulate=True)
-        return DTensor.from_local(table, mesh, keep, run_check=False), None
+        summed = [Shard(0) if v else (Partial() if a.is_partial()
+                                      or isinstance(a, Shard) else a)
+                  for v, a in zip(ctx.vocab, keep)]
+        whole = [Replicate() if isinstance(a, Shard) and not v else p
+                 for v, a, p in zip(ctx.vocab, keep, summed)]
+        table = _from_local(table, mesh, summed, ctx.global_shape)
+        return table.redistribute(mesh, whole), None
+
+
+def cross_entropy_on_shards(logits, labels, z_loss: float = 1e-4):
+    """``models.common.cross_entropy_loss`` of the DTensor logits (B, S, V)
+    against the integer labels (B, S): the mean cross entropy plus
+    ``z_loss`` times the mean squared log-normalizer, in float32 (a float64
+    run stays float64), as a replicated DTensor scalar. Each rank computes
+    it on its own shard of the logits (``_ShardedCE``), whether a mesh
+    dimension shards the vocabulary or leaves it replicated, as GSPMD
+    partitions the reference's ``take_along_axis``. A partial sum is
+    reduced first: scattered over the vocabulary where no mesh dimension
+    shards it yet and the mesh dimension divides it (a product that
+    contracted a sharded feature dimension, as zamba2's head under ``2d``),
+    else made whole; any other placement but a plain shard is made whole.
+    The labels take the logits' row shards and are replicated elsewhere."""
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    vocab = any(isinstance(p, Shard) and p.dim % logits.ndim == last
+                for p in logits.placements)
+    want = []
+    for i, p in enumerate(logits.placements):
+        if p.is_partial() and not vocab and \
+                logits.shape[last] % mesh.size(i) == 0:
+            p, vocab = Shard(last), True
+        elif type(p) not in (Shard, Replicate):
+            p = Replicate()
+        want.append(p)
+    if want != list(logits.placements):
+        logits = logits.redistribute(mesh, want)
+    rows = [Shard(p.dim % logits.ndim) if isinstance(p, Shard)
+            and p.dim % logits.ndim < last else Replicate() for p in want]
+    labels = on_mesh(labels, mesh)
+    if list(labels.placements) != rows:
+        labels = labels.redistribute(mesh, rows)
+    return _ShardedCE.apply(logits, labels, z_loss)
+
+
+def _from_local(t, mesh, placements, shape: tuple):
+    """The DTensor of global ``shape`` (contiguous) whose local shard is
+    ``t``: a shard that the mesh dimension does not divide evenly needs its
+    global shape given."""
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.insert(0, n)
+        n *= size
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def _all_reduce(t, op: str, groups: list):
+    """``t`` reduced by ``op`` over each process group in turn (the
+    functional collectives DTensor itself uses)."""
+    for group in groups:
+        t = funcol.all_reduce(t, op, group)
+        if isinstance(t, funcol.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+class _ShardedCE(torch.autograd.Function):
+    """Forward, on each rank's local logits widened: the row max, all-reduced
+    (MAX) over the mesh dimensions that shard the vocabulary, then the row
+    sum of exp(x - max) (SUM), lse = max + log sum; the gold logit read
+    where the label falls in the rank's vocabulary range (DTensor's own
+    offset of the shard, even or not), else 0 (SUM); then the means of
+    lse - gold and of lse^2 over the local rows, weighted by the rows'
+    share and summed over the mesh dimensions that shard rows. Backward,
+    on the local shard from the saved lse, with no collective:
+    dlogits = g / N (softmax (1 + 2 z lse) - onehot), N the global rows,
+    with the logits' placements."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, z_loss):
+        mesh, pl = logits.device_mesh, logits.placements
+        last = logits.ndim - 1
+        vocab, rows = [], []
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard) and mesh.size(i) > 1:
+                (vocab if p.dim % logits.ndim == last else rows).append(
+                    mesh.get_group(i))
+        _, offset = compute_local_shape_and_global_offset(
+            logits.shape, mesh, pl)
+        x = logits.to_local()
+        lf = x if x.dtype == torch.float64 else x.float()
+        local = labels.to_local().long() - offset[last]
+        inside = (local >= 0) & (local < lf.shape[-1])
+        idx = torch.where(inside, local, 0)
+        m = _all_reduce(lf.amax(-1), "max", vocab)
+        total = _all_reduce((lf - m[..., None]).exp_().sum(-1), "sum", vocab)
+        lse = total.log_().add_(m)
+        gold = _all_reduce(torch.where(
+            inside, lf.gather(-1, idx[..., None])[..., 0], 0.0), "sum", vocab)
+        n = labels.numel()
+        means = torch.stack([(lse - gold).mean(), (lse ** 2).mean()])
+        means = _all_reduce(means * (lse.numel() / n), "sum", rows)
+        ce = means[0] + z_loss * means[1] if z_loss else means[0]
+        ctx.save_for_backward(x, lse, idx, inside)
+        ctx.mesh, ctx.placements, ctx.n, ctx.z_loss = mesh, pl, n, z_loss
+        ctx.shape = tuple(logits.shape)
+        return DTensor.from_local(ce, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, lse, idx, inside = ctx.saved_tensors
+        coef = grad.full_tensor().to(lse.dtype) / ctx.n
+        row = coef * (1 + 2 * ctx.z_loss * lse) if ctx.z_loss else \
+            coef.expand_as(lse)
+        d = x.to(lse.dtype, copy=True).sub_(lse[..., None]).exp_()
+        d.mul_(row[..., None]).scatter_add_(
+            -1, idx[..., None], torch.where(inside, -coef, 0.0)[..., None])
+        return (_from_local(d.to(x.dtype), ctx.mesh, ctx.placements,
+                            ctx.shape), None, None)

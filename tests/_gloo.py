@@ -738,3 +738,118 @@ def context_parallel_apart(got: dict, want: dict) -> dict:
                + np.finfo(np.float64).tiny)
         out[k] = float((np.abs(np.asarray(a[k]) - w) / tol).max())
     return out
+
+
+# the LM loss on vocabulary shards (sharding/context.py::cross_entropy_on_
+# shards): logits (LOSS_BATCH, LOSS_SEQ, V) and labels from numpy's
+# generator, for each vocabulary size; a size the model axis of 2 divides,
+# 49155 (granite-moe-3b-a800m's, which it does not) and 7 (shards of 4 and
+# 3); the labels hit the first and last index and both sides of the shard
+# boundary
+LOSS_BATCH, LOSS_SEQ = 4, 6
+LOSS_VOCABS = (64, 49155, 7)
+LOSS_Z = (1e-4, 0.0, 0.1)
+
+
+def loss_inputs(vocab: int, seed: int = 0):
+    """logits (float64) and labels (int64) as numpy arrays; the labels'
+    first four are 0, V - 1 and the last of the first shard and the first
+    of the second (torch's chunking: ceil(V / 2) rows first)."""
+    rng = np.random.default_rng(seed + vocab)
+    logits = 3.0 * rng.standard_normal((LOSS_BATCH, LOSS_SEQ, vocab))
+    labels = rng.integers(0, vocab, (LOSS_BATCH, LOSS_SEQ))
+    first = -(-vocab // 2)
+    labels.reshape(-1)[:4] = (0, vocab - 1, first - 1, first)
+    return logits, labels
+
+
+def loss_run(logits, labels, z_loss: float, mesh=None, logits_pl=None,
+             labels_pl=None, partial_over=None) -> dict:
+    """``cross_entropy_loss`` and the logits' gradient (both whole numpy),
+    the logits placed by ``logits_pl`` on ``mesh`` (None: one device);
+    ``partial_over`` a mesh dimension over which the logits arrive as a
+    partial sum (each rank a share, the last rank the remainder), on the
+    placements ``logits_pl`` gives elsewhere. Also the placements the
+    gradient came back with."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          distribute_tensor)
+
+    from repro_torch.models.common import cross_entropy_loss
+
+    x = torch.from_numpy(logits)
+    y = torch.from_numpy(labels)
+    if mesh is not None:
+        pl = list(logits_pl)
+        if partial_over is None:
+            x = distribute_tensor(x, mesh, pl)
+        else:
+            n = mesh.size(partial_over)
+            me = mesh.get_local_rank(partial_over)
+            share = x / n if me < n - 1 else x - (n - 1) * (x / n)
+            pl[partial_over] = Replicate()
+            local = distribute_tensor(share, mesh, pl).to_local()
+            pl[partial_over] = Partial()
+            x = DTensor.from_local(local, mesh, pl, run_check=False)
+        y = distribute_tensor(y, mesh, list(labels_pl))
+    x = x.detach().requires_grad_()
+    loss = cross_entropy_loss(x, y, z_loss)
+    g, = torch.autograd.grad(loss, x)
+    out = {"loss": _whole(loss), "grad": _whole(g)}
+    out["grad_pl"] = [str(p) for p in getattr(g, "placements", ())]
+    return out
+
+
+def loss_shards(rank, world, out, checks, cases: dict):
+    """``loss_run`` on a 2 x 2 ("data", "model") mesh for each case: name ->
+    (vocab, dtype name, z_loss, logits placements, labels placements,
+    partial_over), the placements as codes ("R", "S0", ...)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    for name, (vocab, dtype, z, x_pl, y_pl, partial) in cases.items():
+        def run(vocab=vocab, dtype=dtype, z=z, x_pl=x_pl, y_pl=y_pl,
+                partial=partial):
+            logits, labels = loss_inputs(vocab)
+            return loss_run(logits.astype(dtype), labels, z, mesh,
+                            [_placement(c) for c in x_pl],
+                            [_placement(c) for c in y_pl], partial)
+        checks(name, run)
+
+
+def rows_run(vocab: int, mesh=None, table_pl=None, tokens_pl=None) -> dict:
+    """``embedding_rows`` of a float64 table (vocab, 6) for tokens
+    (LOSS_BATCH, LOSS_SEQ) that hit its first and last rows and both sides
+    of a shard boundary, and the table's gradient under the loss
+    sum(rows * g); both whole numpy. The table and the tokens placed by
+    the codes on ``mesh`` (None: one device)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.sharding.context import embedding_rows, on_mesh
+
+    rng = np.random.default_rng(vocab)
+    table = torch.from_numpy(rng.standard_normal((vocab, 6)))
+    tokens = torch.from_numpy(rng.integers(0, vocab, (LOSS_BATCH, LOSS_SEQ)))
+    first = -(-vocab // 2)
+    tokens.view(-1)[:4] = torch.tensor((0, vocab - 1, first - 1, first))
+    g = torch.from_numpy(rng.standard_normal((LOSS_BATCH, LOSS_SEQ, 6)))
+    if mesh is not None:
+        table = distribute_tensor(table, mesh,
+                                  [_placement(c) for c in table_pl])
+        tokens = distribute_tensor(tokens, mesh,
+                                   [_placement(c) for c in tokens_pl])
+        g = on_mesh(g, mesh)
+    table.requires_grad_()
+    rows = embedding_rows(table, tokens)
+    grad, = torch.autograd.grad((rows * g).sum(), table)
+    return {"rows": _whole(rows), "grad": _whole(grad)}
+
+
+def rows_shards(rank, world, out, checks, cases: dict):
+    """``rows_run`` on a 2 x 2 ("data", "model") mesh for each case: name ->
+    (vocab, table codes, tokens codes)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    for name, (vocab, table_pl, tokens_pl) in cases.items():
+        checks(name, lambda v=vocab, a=table_pl, b=tokens_pl: rows_run(
+            v, mesh, a, b))
