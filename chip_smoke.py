@@ -232,7 +232,10 @@ Phases, one JSON line each:
                run by this host's torch in spawned workers at a lower
                priority, started first and read after lm_families_mesh;
                each cell's status and seconds, the pool's seconds, the
-               wait for it, the torch version; every cell must run
+               wait for it, the torch version; every cell must run. In the
+               same pool, first, the three ``PEAK_CELLS`` (faults F9-F12):
+               each cell's counted peak a rank on a fake (16, 16) mesh
+               under 2d, held under its bound
   context_parallel_host  the context-parallel attention on 4 gloo ranks
                of the host under the host's torch (tests/_gloo.py's
                ``context_parallel`` world: reduced smollm-360m with 3 / 1
@@ -446,6 +449,14 @@ F6_CELLS = tuple(
                                    "mistral-large-123b", "zamba2-2.7b")]
     + [(a, m, "2d") for a in ("zamba2-2.7b", "xlstm-125m")
        for m in ((2, 2), (2, 16), (16, 16))])
+# faults F9-F12 (ROADMAP section 3): tests/test_torch_loss_shards.py's
+# PEAK_CELLS, the train_4k cells on a fake (16, 16) mesh under 2d with
+# their depth cut, counted in the same pool by this host's torch (the
+# card's; the tests run another), each held under its bound in bytes a
+# rank (the same bounds as the test's)
+PEAK_CELLS = {"smollm-360m": (4, 1.75 * 2 ** 30),
+              "qwen2.5-14b": (6, 2.6 * 2 ** 30),
+              "zamba2-2.7b": (6, 3.9 * 2 ** 30)}
 MESH_CELL_WORKERS = 4
 MESH_CELL_NICE = 19          # below the dry-run and the timed phases
 MESH_CELLS_TIMEOUT_S = 1000
@@ -3310,8 +3321,9 @@ def loss_shards_phase(dev, smi: str) -> dict:
 def mesh_cell(cell: tuple) -> dict:
     """One F6 cell (arch, mesh shape, strategy) in this worker process, off
     the card: tests/_mesh_cells.py's ``run_cell`` (the cut ``train_4k``
-    step on meta tensors over a fake process group); its status, seconds
-    and, if it raised, the end of its traceback."""
+    step on meta tensors over a fake process group), or with the strategy
+    "peak" one of PEAK_CELLS (``peak_cell``); its status, seconds and, if
+    it raised, the end of its traceback."""
     import os
     import traceback
     os.nice(MESH_CELL_NICE)
@@ -3326,17 +3338,44 @@ def mesh_cell(cell: tuple) -> dict:
            "strategy": strategy}
     t0 = time.perf_counter()
     try:
-        got = run_cell(arch, mesh_shape, strategy)
-        out["ok"] = (got["loss_shape"] == ()
-                     and got["placements"] == got["want"] == got["out_pl"])
-        if not out["ok"]:
-            out["error"] = "the loss is not a scalar, or the state left " \
-                           "its placements"
+        if strategy == "peak":
+            out.update(strategy="2d", **peak_cell(arch))
+        else:
+            got = run_cell(arch, mesh_shape, strategy)
+            out["ok"] = (got["loss_shape"] == () and got["placements"]
+                         == got["want"] == got["out_pl"])
+            if not out["ok"]:
+                out["error"] = "the loss is not a scalar, or the state " \
+                               "left its placements"
     except Exception:               # reported; the phase fails on it
         out["ok"] = False
         out["error"] = traceback.format_exc()[-3000:]
     out["seconds"] = time.perf_counter() - t0
     out["done_at"] = time.time()
+    return out
+
+
+def peak_cell(arch: str) -> dict:
+    """One of PEAK_CELLS counted in this worker: the cell's ``train_4k``
+    step with its depth cut, on meta tensors over a fake (16, 16) process
+    group under 2d and torch 2.11's view rule, as
+    tests/test_torch_loss_shards.py counts it; its peak a rank, its bound
+    and whether it stays under it."""
+    from dataclasses import replace
+
+    from _mesh_cells import fake_mesh, view_rule_2_11
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.core.autotune import strategy_costs
+    from repro_torch.models.registry import build_model
+
+    layers, most = PEAK_CELLS[arch]
+    model = build_model(replace(ARCHS[arch], n_layers=layers))
+    with fake_mesh((16, 16)) as mesh, view_rule_2_11():
+        run = strategy_costs(model, SHAPES["train_4k"], mesh, "2d")
+    out = {"layers": layers, "peak_bytes": run.peak_bytes,
+           "peak_max": most, "ok": run.peak_bytes < most}
+    if not out["ok"]:
+        out["error"] = f"counts {run.peak_bytes} bytes a rank, bound {most}"
     return out
 
 
@@ -3348,30 +3387,33 @@ def mesh_cells_host():
     pool = multiprocessing.get_context("spawn").Pool(MESH_CELL_WORKERS,
                                                      maxtasksperchild=1)
     try:
-        yield pool.map_async(mesh_cell, F6_CELLS, chunksize=1), time.time()
+        cells = [(a, (16, 16), "peak") for a in PEAK_CELLS] + list(F6_CELLS)
+        yield pool.map_async(mesh_cell, cells, chunksize=1), time.time()
     finally:
         pool.terminate()
         pool.join()
 
 
 def mesh_cells_host_phase(started: tuple, smi: str) -> dict:
-    """Every F6 cell's status and seconds under this torch, the seconds
-    from the pool's start to its last cell's end, and how long the main
-    process waited for them here; fails unless every cell ran."""
+    """Every F6 cell's status and seconds under this torch, and each of
+    PEAK_CELLS' peak beside its bound, the seconds from the pool's start
+    to its last cell's end, and how long the main process waited for them
+    here; fails unless every cell ran and every peak held."""
     import torch
     pending, t0 = started
     t_read = time.time()
     cells = pending.get(timeout=max(1.0, MESH_CELLS_TIMEOUT_S
                                     - (t_read - t0)))
     out = {"torch": torch.__version__, "cells": [
-        {k: c[k] for k in ("arch", "mesh", "strategy", "ok", "seconds")}
+        {k: c[k] for k in ("arch", "mesh", "strategy", "ok", "seconds",
+                           "layers", "peak_bytes", "peak_max") if k in c}
         for c in cells], "ok": sum(c["ok"] for c in cells),
         "of": len(cells), "seconds": max(c["done_at"] for c in cells) - t0,
         "waited_s": time.time() - t_read, "workers": MESH_CELL_WORKERS}
     emit("mesh_cells_host", **out, card=smi)
     failed = [c for c in cells if not c["ok"]]
     if failed:
-        raise AssertionError("F6 cells failed under torch "
+        raise AssertionError("mesh cells failed under torch "
                              f"{torch.__version__}:\n" + "\n".join(
                                  f"{c['arch']} {c['mesh']} {c['strategy']}: "
                                  f"{c['error']}" for c in failed))

@@ -39,7 +39,7 @@ from ..kernels.attention import flash_attention
 from ..sharding.context import (constrain, current_ctx, on_mesh,
                                 product_on_shards, reduced)
 from .common import (EMBED, HEAD_DIM, HEADS, KV_HEADS, ParamSpec, apply_rope,
-                     f32)
+                     f32, remat)
 
 
 def attn_specs(cfg) -> dict:
@@ -140,7 +140,8 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_valid_len=None,
           return_lse: bool = False):
     """q (B,Sq,H,Dh); k/v (B,Skv,Hkv,Dh). Grouped attention; queries
     processed in chunks of Q_CHUNK (exact: softmax is per query over the
-    full key range) so the score buffer never holds S^2. Query row r sees
+    full key range) so the score buffer never holds S^2, each chunk
+    checkpointed where a gradient is taken. Query row r sees
     the keys c <= r + q_offset (causal) and c < kv_valid_len. With
     ``return_lse``, (o, lse): lse (B,Sq,H) float32, each row's log-sum-exp
     of its scaled scores, -inf where it sees no key."""
@@ -153,9 +154,17 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_valid_len=None,
     starts = ([0] if Sq <= Q_CHUNK or Sq % Q_CHUNK != 0
               else range(0, Sq, Q_CHUNK))
     qc = Sq if len(starts) == 1 else Q_CHUNK
-    parts = [_sdpa_block(qg[:, i:i + qc], k, v, causal=causal,
-                         q_offset=q_offset + i, kv_valid_len=kv_valid_len,
-                         scale=scale, return_lse=return_lse)
+    # where a gradient is taken over several chunks, each chunk is
+    # checkpointed (the reference's jax.checkpoint of its scan body): the
+    # backward recomputes one chunk's scores at a time instead of keeping
+    # every chunk's
+    ckpt = len(starts) > 1 and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    parts = [remat(ckpt, partial(_sdpa_block, causal=causal,
+                                 q_offset=q_offset + i,
+                                 kv_valid_len=kv_valid_len, scale=scale,
+                                 return_lse=return_lse),
+                   qg[:, i:i + qc], k, v)
              for i in starts]
     if not return_lse:
         return torch.cat(parts, dim=1).reshape(B, Sq, H, Dh).to(q.dtype)

@@ -18,7 +18,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..core.forest_torch import resolve_device
-from ..sharding.context import cross_entropy_on_shards, in_scope
+from ..sharding.context import cross_entropy_on_shards, in_scope, reduced
 
 # ---------------------------------------------------------------- param specs
 
@@ -139,9 +139,19 @@ def f32(x):
 
 
 def rms_norm(x, w, eps: float = 1e-5):
-    """In float32, cast to x's dtype, and only then scaled by w."""
+    """In float32, cast to x's dtype, and only then scaled by w. On a
+    DTensor whose normalized dimension is sharded (the Mamba2 gated norm
+    over the inner dimension) the mean square is all-reduced, a (B, S, 1)
+    statistic, and so is its gradient: the normalization and its backward
+    run on the shards."""
     xf = f32(x)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if isinstance(x, DTensor) and any(
+            getattr(p, "dim", None) == x.ndim - 1 for p in x.placements):
+        var = reduced(torch.sum(xf * xf, dim=-1, keepdim=True))
+        # the identity, whose backward reduces a partial gradient here
+        var = var.redistribute(var.device_mesh, var.placements) / x.shape[-1]
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
 
 

@@ -12,6 +12,18 @@ Sequence mixing outside decode, as in the reference:
   * otherwise the plain chunked SSD (``kernels.mamba.ref.ssd_chunked``).
 Decode is the O(1) recurrence against (conv_state, ssm_state) caches, in
 plain torch (the reference has no kernel there).
+
+On a mesh the mixer runs on each rank's shards up to its gated norm
+(``_mix_on_shards``, a ``local_map``): the sequence whole (the conv and the
+recurrence run along it), the batch as the rules shard it, and the inner
+dimension by whole heads where the rules shard ``act_inner``. Each rank
+gathers the (small) in-projection and conv weights, takes its own column
+ranges of them (its heads' z, x and dt, and B and C whole, shared by every
+head) and scans its own heads; so no rank holds another rank's slice of
+the inner dimension (fault F11). The weights' gradients are partial sums
+over the ranks' rows and heads, reduce-scattered to the parameters' own
+placements in the backward of their gathers. The norm's sum over the inner
+dimension and the out-projection's partial sum are DTensor's.
 """
 from __future__ import annotations
 
@@ -23,7 +35,8 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.mamba import ops
 from ..kernels.mamba.ref import ssd_chunked
-from ..sharding.context import constrain, project
+from ..sharding.context import constrain, current_ctx, project
+from ..sharding.rules import placements, spec_for_axes
 from .common import CONV, EMBED, HEADS, INNER, ParamSpec, rms_norm, silu, softplus
 
 
@@ -46,8 +59,7 @@ def mamba_specs(cfg) -> dict:
     }
 
 
-def _split_proj(cfg, proj):
-    di, N = cfg.d_inner, cfg.ssm_state
+def _split_proj(di: int, N: int, proj):
     z = proj[..., :di]
     xbc = proj[..., di:di + di + 2 * N]
     dt = proj[..., di + di + 2 * N:]
@@ -73,13 +85,32 @@ def _causal_conv(p, xbc, conv_state=None):
 
 
 def mamba_mix(cfg, p, u, ssm_state=None, conv_state=None, *, decode=False):
-    """u: (B, S, d). Returns (out, (conv_state, ssm_state))."""
-    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    P = cfg.ssm_head_dim
+    """u: (B, S, d). Returns (out, (conv_state, ssm_state)); on a mesh the
+    conv state only where no gradient is taken (serving)."""
+    if isinstance(u, DTensor):
+        y, z, new_conv, new_ssm = _mix_on_shards(cfg, p, u, ssm_state,
+                                                 conv_state, decode)
+    else:
+        y, z, new_conv, new_ssm = _mix(cfg, p, u, ssm_state, conv_state,
+                                       decode)
+    y = rms_norm(y, p["out_norm"], cfg.norm_eps) * silu(z)
+    out = project(y, p["out_proj"])
+    out = constrain(out, ("act_batch", "act_seq", "act_embed"))
+    return out, (new_conv, new_ssm)
+
+
+def _mix(cfg, p, u, ssm_state=None, conv_state=None, decode=False):
+    """The mixer of plain tensors up to its gated norm: (y (B, S, di) with
+    the skip added, z, the conv state, the SSM state). The head count, and
+    with it di, is ``a_log``'s length: on a mesh, a rank's own heads, with
+    ``in_proj``, ``conv_w`` and ``conv_b`` their columns in the same
+    layout."""
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    H = p["a_log"].shape[0]
+    di = H * P
     dtp = u.dtype
-    proj = project(u, p["in_proj"])                             # (B,S,2di+2N+H)
-    proj = constrain(proj, ("act_batch", "act_seq", "act_inner"))
-    z, xbc, dt_raw = _split_proj(cfg, proj)
+    proj = u @ p["in_proj"].to(dtp)                             # (B,S,2di+2N+H)
+    z, xbc, dt_raw = _split_proj(di, N, proj)
     xbc, new_conv = _causal_conv(p, xbc, conv_state if decode else None)
     x = xbc[..., :di]
     Bm = xbc[..., di:di + N]
@@ -103,18 +134,10 @@ def mamba_mix(cfg, p, u, ssm_state=None, conv_state=None, *, decode=False):
         y = y[:, None].to(dtp)                                  # (B,1,H,P)
         new_ssm = h
     else:
-        scan = _ssd if ssm_state is None else partial(_ssd, h0=ssm_state)
-        args = (cfg, xin, alog, Bm, Cm)
-        if isinstance(xin, DTensor):
-            scan, args = _ssd_on_shards(scan, *args)
-        y, new_ssm = scan(*args)
+        y, new_ssm = _ssd(cfg, xin, alog, Bm, Cm, h0=ssm_state)
 
     y = y + xh * p["d_skip"].to(dtp)[None, None, :, None]
-    y = y.reshape(Bsz, S, di)
-    y = rms_norm(y, p["out_norm"], cfg.norm_eps) * silu(z)
-    out = project(y, p["out_proj"])
-    out = constrain(out, ("act_batch", "act_seq", "act_embed"))
-    return out, (new_conv, new_ssm)
+    return y.reshape(Bsz, S, di), z, new_conv, new_ssm
 
 
 def _ssd(cfg, xin, alog, Bm, Cm, h0=None):
@@ -125,27 +148,95 @@ def _ssd(cfg, xin, alog, Bm, Cm, h0=None):
     return ssd_chunked(xin, alog, Bm, Cm, h0=h0, chunk=min(128, xin.shape[1]))
 
 
-def _ssd_on_shards(scan, cfg, xin, alog, Bm, Cm):
-    """(``scan`` as a ``local_map`` over the mesh, its DTensor arguments):
-    each rank scans its shards, no DTensor reaching the kernel. The shards
-    keep xin's batch sharding and its head sharding (the recurrence is per
-    head); anything else is gathered first. B and C are shared by the
-    heads, so they are gathered over a head-sharded mesh dimension, and
-    their gradients there are partial sums, one per rank's heads."""
-    mesh = xin.device_mesh
-    x_pl = [a if a in (Shard(0), Shard(2)) else Replicate()
-            for a in xin.placements]
-    bc_pl = [a if a == Shard(0) else Replicate() for a in x_pl]
-    bc_grad = [Partial() if a == Shard(2) else b for a, b in zip(x_pl, bc_pl)]
-    h_pl = [Shard(1) if a == Shard(2) else a for a in x_pl]
-    xin = xin.redistribute(mesh, x_pl)
-    alog = alog.redistribute(mesh, x_pl)
-    Bm, Cm = (t.redistribute(mesh, bc_pl) for t in (Bm, Cm))
-    fn = local_map(partial(scan, cfg), out_placements=(x_pl, h_pl),
-                   in_placements=(x_pl, x_pl, bc_pl, bc_pl),
-                   in_grad_placements=(x_pl, x_pl, bc_grad, bc_grad),
-                   device_mesh=mesh)
-    return fn, (xin, alog, Bm, Cm)
+def _columns(cfg, H: int, h0: int, h: int, device) -> tuple:
+    """(in_proj's columns, conv's channels) of heads h0 ... h0 + h - 1 of
+    H, in the layout ``_mix`` reads: z, x and dt of those heads, B and C
+    whole; None where they are every head."""
+    if h == H:
+        return None, None
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    di = H * P
+    x = torch.arange(h0 * P, (h0 + h) * P, device=device)
+    bc = torch.arange(di, di + 2 * N, device=device)
+    conv = torch.cat([x, bc])
+    cols = torch.cat([x, di + conv, 2 * di + 2 * N + h0
+                      + torch.arange(h, device=device)])
+    return cols, conv
+
+
+def _mix_local(cfg, H: int, h0: int, decode: bool, u, in_proj, conv_w,
+               conv_b, a_log, dt_bias, d_skip, ssm_state=None,
+               conv_state=None):
+    """``_mix`` on one rank's local tensors: heads h0 ... of H (the length
+    of its ``a_log``) against the gathered in-projection and conv weights
+    and the gathered conv state; returns (y, z, the conv state's x
+    channels and its B and C channels, the SSM state)."""
+    cols, conv = _columns(cfg, H, h0, a_log.shape[0], u.device)
+    p = {"in_proj": in_proj, "conv_w": conv_w, "conv_b": conv_b,
+         "a_log": a_log, "dt_bias": dt_bias, "d_skip": d_skip}
+    if cols is not None:
+        p.update(in_proj=in_proj.index_select(1, cols),
+                 conv_w=conv_w.index_select(1, conv),
+                 conv_b=conv_b.index_select(0, conv))
+        if conv_state is not None:
+            conv_state = conv_state.index_select(2, conv)
+    y, z, new_conv, new_ssm = _mix(cfg, p, u, ssm_state, conv_state, decode)
+    di = y.shape[-1]
+    return y, z, new_conv[..., :di], new_conv[..., di:], new_ssm
+
+
+def _mix_on_shards(cfg, p, u, ssm_state, conv_state, decode):
+    """``_mix`` of the DTensor u on each rank's shards (``local_map``; the
+    module docstring says how they are cut). Returns y and z (B, S, di)
+    sharded by heads, the conv state (gathered over the heads; None where
+    u takes a gradient: training reads no cache) and the SSM state
+    (B, H, N, P) sharded by heads."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = u.device_mesh
+    ctx = current_ctx()
+    Bsz, S = u.shape[:2]
+    H = cfg.n_ssm_heads
+    if ctx is None:
+        pl = [a if a == Shard(0) else Replicate() for a in u.placements]
+    else:
+        pl = list(placements(spec_for_axes(("act_batch", None, "act_inner"),
+                                           ctx[1], mesh, (Bsz, S, H)), mesh))
+    rows = [a if a == Shard(0) else Replicate() for a in pl]
+    heads = [Shard(0) if a == Shard(2) else Replicate() for a in pl]
+    state = [a if a == Shard(0) else Shard(1) if a == Shard(2)
+             else Replicate() for a in pl]
+    summed = [Partial() if isinstance(a, Shard) else Replicate() for a in pl]
+    u_grad = [a if a == Shard(0) else Partial() if a == Shard(2)
+              else Replicate() for a in pl]
+    head_grad = [Partial() if a == Shard(0) else b
+                 for a, b in zip(pl, heads)]
+    whole = [Replicate()] * mesh.ndim
+    _, offset = compute_local_shape_and_global_offset((Bsz, S, H), mesh, pl)
+    dtp = u.dtype
+    args = [u.redistribute(mesh, rows),
+            p["in_proj"].to(dtp).redistribute(mesh, whole),
+            p["conv_w"].to(dtp).redistribute(mesh, whole),
+            p["conv_b"].to(dtp).redistribute(mesh, whole),
+            *(p[k].redistribute(mesh, heads)
+              for k in ("a_log", "dt_bias", "d_skip"))]
+    in_pl = [rows, whole, whole, whole, heads, heads, heads]
+    grad_pl = [u_grad, summed, summed, summed] + [head_grad] * 3
+    for t, t_pl in ((ssm_state, state), (conv_state, rows)):
+        t_pl = None if t is None else t_pl
+        args.append(None if t is None else t.redistribute(mesh, t_pl))
+        in_pl.append(t_pl)
+        grad_pl.append(t_pl)
+    fn = local_map(partial(_mix_local, cfg, H, offset[2], decode),
+                   out_placements=(pl, pl, pl, rows, state),
+                   in_placements=tuple(in_pl),
+                   in_grad_placements=tuple(grad_pl), device_mesh=mesh)
+    y, z, conv_x, conv_bc, new_ssm = fn(*args)
+    new_conv = None
+    if not u.requires_grad:
+        new_conv = torch.cat([conv_x.redistribute(mesh, rows), conv_bc], -1)
+    return y, z, new_conv, new_ssm
 
 
 def mamba_cache_shapes(cfg, batch: int):

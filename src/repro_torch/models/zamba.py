@@ -89,7 +89,11 @@ def _shared_block(cfg, shared, lora, x, cos, sin, mode, kv_cache=None,
     mlp_p = dict(shared["mlp"])
     mlp_p["wi_gate"] = mlp_p["wi_gate"] + (
         lora["gate_a"] @ lora["gate_b"]).to(mlp_p["wi_gate"].dtype)
-    return x + swiglu(mlp_p, h), new_cache
+    # on a mesh the MLP's out-projection leaves a partial sum over its
+    # sharded width: reduced here, once, not in the next norm and again in
+    # the head's product
+    x = constrain(x + swiglu(mlp_p, h), ("act_batch", "act_seq", "act_embed"))
+    return x, new_cache
 
 
 def _train_layer(cfg, lp, x):

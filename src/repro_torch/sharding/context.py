@@ -18,16 +18,19 @@ replicated DTensors on its mesh (every rank made the same values).
 An embedding lookup on a DTensor table and its gradient run on local
 tensors (``embedding_rows``).
 
-A product that contracts heads with a weight sharded over (heads,
-head_dim) runs on each rank's shards (``product_on_shards``): DTensor
-cannot unflatten a sharded ``heads x head_dim`` dimension into a head
-count that the mesh dimension does not divide (smollm's 15 heads on a
-model axis of 2).
-
-Every other projection of an activation by a 2-D weight goes through
-``project``: torch 2.11's DTensor refuses the matmul's view of an x whose
-sequence is sharded, or of such a gradient (fault F6), and ``project``
-keeps both off that view.
+Every product of an activation by a weight runs on each rank's shards
+(``product_on_shards``; a 2-D weight through ``project``): each rank keeps
+its rows and gathers the weight where the rows are sharded, as GSPMD does
+for the reference, and the weight's gradient is reduce-scattered back to
+the weight's own placements inside the backward, so no rank holds a whole
+weight's gradient (faults F10, F12). DTensor's own matmul would exchange
+the activation against a weight sharded over the data axis, cannot
+unflatten a sharded ``heads x head_dim`` dimension into a head count that
+the mesh dimension does not divide (smollm's 15 heads on a model axis of
+2, fault F1), and under torch 2.11 refuses the matmul's view of an x whose
+sequence is sharded (fault F6). The Mamba2 mixer takes each rank's own
+column ranges of its gathered in-projection (``models/mamba2.py``, fault
+F11).
 
 The LM loss on DTensor logits runs on each rank's vocabulary shard
 (``cross_entropy_on_shards``): the ranks exchange only per-row values,
@@ -161,8 +164,13 @@ def product_on_shards(fn, x, w, contract: int = 1):
     there; a contracted dimension sharded in x is sharded alike in w and
     the product is a ``Partial`` sum; otherwise x is replicated and w keeps
     a shard of an output dimension (heads or ``head_dim``), which the
-    product then carries; any other shard of w is gathered. Gradients of
-    an operand replicated against the other's shards are partial sums."""
+    product then carries; any other shard of w is gathered. The gradient
+    of an operand replicated against the other's shards is a partial sum,
+    redistributed to the operand's own placements in the backward of its
+    redistribution: x's reduced at once, as GSPMD reduces each product's,
+    w's reduce-scattered where the rows are sharded. A weight
+    gathered over sharded rows is not kept for the backward, which gathers
+    it again (``_regathering``), as the reference's FSDP does."""
     mesh = x.device_mesh
     lead = x.ndim - contract
     x_pl, w_pl, out_pl, x_grad, w_grad = [], [], [], [], []
@@ -178,56 +186,53 @@ def product_on_shards(fn, x, w, contract: int = 1):
             pl = (Replicate(),) * 5
         for dst, p in zip((x_pl, w_pl, out_pl, x_grad, w_grad), pl):
             dst.append(p)
+    if any(isinstance(a, Shard) and a.dim < lead and isinstance(b, Shard)
+           for a, b in zip(x.placements, w.placements)):
+        fn = _regathering(fn, w, w_pl)
     fn = local_map(fn, out_placements=out_pl, in_placements=(x_pl, w_pl),
                    in_grad_placements=(x_grad, w_grad), device_mesh=mesh)
     return fn(x.redistribute(mesh, x_pl), w.redistribute(mesh, w_pl))
 
 
-def _rows_refused(t) -> bool:
-    """Whether torch 2.11's DTensor refuses to view the DTensor ``t`` (..., n)
-    as (rows, n): a dimension after the first of its leading ones is
-    sharded ("Attempted to flatten multiple dimensions", fault F6)."""
-    return any(0 < getattr(p, "dim", 0) < t.ndim - 1 for p in t.placements)
+def _regathering(fn, w, w_pl):
+    """``fn(x, w_local)`` of a local weight gathered from the DTensor w to
+    the placements ``w_pl``: where the forward keeps what it saves for the
+    backward, no saved view of the gathered weight is kept, and the
+    backward gathers it again from w's shards. Inside a checkpointed
+    forward (its own hooks drop what it saves) and in a recomputation
+    (the backward is about to read it) ``fn`` runs as it is."""
+    def run(x, w_local):
+        if not torch.is_grad_enabled() or \
+                torch._C._current_graph_task_id() != -1 or \
+                torch._C._autograd._top_saved_tensors_default_hooks(True):
+            return fn(x, w_local)
+        key = w_local.untyped_storage()._cdata
+
+        def pack(t):
+            if t.untyped_storage()._cdata != key:
+                return t
+            return (t.shape, t.stride(), t.storage_offset())
+
+        def unpack(saved):
+            if isinstance(saved, torch.Tensor):
+                return saved
+            with torch.no_grad():
+                again = w.redistribute(w.device_mesh, w_pl).to_local()
+            return again.as_strided(*saved)
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            return fn(x, w_local)
+    return run
 
 
 def project(x, w):
     """``x @ w`` in x's dtype: an activation x (..., k) times a 2-D weight
-    w (k, n), the one route of a projection on a mesh. A matmul views x as
-    (rows, k), and in its backward the product's gradient as (rows, n). An
-    x whose sequence is sharded (``sp``) runs on each rank's shards
-    (``product_on_shards``); any other x takes the matmul itself,
-    DTensor's own rule, so its partial sums are reduced where they were,
-    and a gradient that comes back so sharded first meets the product's
-    own placements there (``_GradRows``)."""
+    w (k, n), the one route of a projection on a mesh: a DTensor x runs on
+    each rank's shards (``product_on_shards``)."""
     w = w.to(x.dtype)
     if not isinstance(x, DTensor):
         return x @ w
-    if _rows_refused(x):
-        return product_on_shards(torch.matmul, x, w)
-    return _GradRows.apply(x @ w)
-
-
-class _GradRows(torch.autograd.Function):
-    """The identity; in the backward, a gradient that torch 2.11 could not
-    view as rows is redistributed to the forward's placements on each mesh
-    dimension that shards such a dimension (a partial sum there made whole:
-    a gradient is never partial by redistribution). Any other gradient
-    passes as it came, so the sums stay where DTensor put them."""
-
-    @staticmethod
-    def forward(ctx, y):
-        ctx.placements = y.placements
-        return y.view_as(y)
-
-    @staticmethod
-    def backward(ctx, grad):
-        if not _rows_refused(grad):
-            return grad
-        lead = grad.ndim - 1
-        want = [(Replicate() if f.is_partial() else f)
-                if 0 < getattr(g, "dim", 0) < lead else g
-                for g, f in zip(grad.placements, ctx.placements)]
-        return grad.redistribute(grad.device_mesh, want)
+    return product_on_shards(torch.matmul, x, w)
 
 
 def embedding_rows(table, tokens):

@@ -127,10 +127,11 @@ def test_autotune_order_and_dominant_term_match_reference(reference):
     kept in the order given), and each strategy's dominant roofline term
     is the reference's (collective, on both sides). DTensor's
     redistributions are not XLA's collectives: the counts differ (under
-    ``2d`` 76 all-gathers, 46 all-reduces and 33 reduce-scatters against
-    the reference's 77, 30, no reduce-scatter, 2 all-to-alls and a
-    collective-permute; under ``tp`` 13, 57 and 11 against 27
-    all-reduces), not the order."""
+    ``2d`` 77 all-gathers, 54 all-reduces and 32 reduce-scatters, 1,800,878
+    bytes, against the reference's 77, 30, no reduce-scatter, 2
+    all-to-alls and a collective-permute, 2,070,894 bytes; under ``tp`` 75
+    all-reduces against 27, XLA's combined, 1,528,748 bytes on both
+    sides), not the order."""
     from repro_torch.core import autotune
 
     costs = {}

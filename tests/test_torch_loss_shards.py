@@ -237,16 +237,17 @@ def test_loss_keeps_to_its_shard_and_moves_rows():
 
 
 # the train_4k cells on a fake (16, 16) mesh under 2d, depth cut, each
-# with the most its peak may count a rank. The parent counted 114.61, 89.23
-# and 75.23 GiB, the loss's gradient of the whole microbatch on every rank;
-# this repair counts 3.11, 8.89 and 6.99 GiB. The last two stay above the
-# 4 GiB of smollm-360m's bound: DTensor's own products against weights
-# sharded over the data axis hold them (fault F10, ROADMAP section 3:
-# qwen2.5-14b's activations exchanged over the data axis whole, zamba2-
-# 2.7b's head leaving partial logits whose gradient is gathered over the
-# vocabulary); tools/mesh_peaks.py --tally shows what is live at a peak
-PEAK_CELLS = {"smollm-360m": (4, 4 * GiB), "qwen2.5-14b": (6, 9.5 * GiB),
-              "zamba2-2.7b": (6, 7.5 * GiB)}
+# with the most its peak may count a rank. Before F7 the cells counted
+# 114.61, 89.23 and 75.23 GiB (the loss's gradient of the whole microbatch
+# on every rank); after it 3.11, 8.89 and 6.99 GiB, held up by F9 (every
+# query chunk's scores kept for the backward), F10 (DTensor's own products
+# exchanging qwen2.5-14b's activations over the data axis, zamba2-2.7b's
+# head leaving partial logits) and F11 (zamba2-2.7b's Mamba2 slices
+# gathered over the model axis). With F9-F12 repaired (ROADMAP section 3)
+# they count 1.604, 2.372 and 3.559 GiB; each bound is that, rounded up by
+# under 10 %. tools/mesh_peaks.py --tally shows what is live at a peak
+PEAK_CELLS = {"smollm-360m": (4, 1.75 * GiB), "qwen2.5-14b": (6, 2.6 * GiB),
+              "zamba2-2.7b": (6, 3.9 * GiB)}
 
 
 @pytest.mark.parametrize("arch", list(PEAK_CELLS))
