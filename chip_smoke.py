@@ -235,7 +235,13 @@ Phases, one JSON line each:
                wait for it, the torch version; every cell must run. In the
                same pool, first, the three ``PEAK_CELLS`` (faults F9-F12):
                each cell's counted peak a rank on a fake (16, 16) mesh
-               under 2d, held under its bound
+               under 2d, held under its bound; then the six ``CAUSE_CELLS``
+               (faults F14-F19): a serving cell of each repaired collective
+               cause counted on a fake mesh, its collective bytes a rank
+               held under 1.25x the reference's count of the same cell
+               (written here: this host has no JAX); and ``POD_CELLS``,
+               every family's cut ``train_4k`` step on a fake (2, 2, 2)
+               ("pod", "data", "model") mesh under 2d
   context_parallel_host  the context-parallel attention on 4 gloo ranks
                of the host under the host's torch (tests/_gloo.py's
                ``context_parallel`` world: reduced smollm-360m with 3 / 1
@@ -457,6 +463,31 @@ F6_CELLS = tuple(
 PEAK_CELLS = {"smollm-360m": (4, 1.75 * 2 ** 30),
               "qwen2.5-14b": (6, 2.6 * 2 ** 30),
               "zamba2-2.7b": (6, 3.9 * 2 ** 30)}
+# faults F14-F19 (ROADMAP section 3): one serving cell of each repaired
+# collective cause, as tests/test_torch_dryrun_faults.py counts it, with
+# the reference's collective bytes a device of the same cell (lowered and
+# compiled by the reference's launch/cells.py on 8 host devices, 512 for
+# the last, and counted by its launch/roofline.py::analyze_cell under JAX
+# 0.9.0 on a CPU host): (arch, config overrides or None for the full
+# width, kind, seq_len, batch, mesh, the reference's bytes)
+CAUSE_CELLS = {
+    "dense": ("qwen2.5-14b", dict(d_model=256, n_heads=4, n_kv_heads=2,
+                                  head_dim=64, d_ff=512, vocab=4096),
+              "decode", 64, 8, (2, 2, 2), 2252424.0),
+    "cross": ("whisper-medium", {}, "decode", 64, 8, (2, 2, 2), 71056.0),
+    "moe": ("olmoe-1b-7b", {}, "decode", 64, 8, (2, 2, 2), 247528.0),
+    "moe-slots": ("granite-moe-3b-a800m", dict(n_experts=3), "decode", 64, 8,
+                  (2, 2, 2), 221928.0),
+    "mixer": ("zamba2-2.7b", {}, "decode", 64, 8, (2, 2, 2), 185256.0),
+    "xlstm-pod": ("xlstm-125m", None, "decode", 524288, 1, (2, 16, 16),
+                  10106256.75),
+}
+CAUSE_LIMIT = 1.25
+# every family's cut train_4k step on the multi-pod mesh's three axes
+POD_CELLS = tuple((a, (2, 2, 2), "2d") for a in (
+    "zamba2-2.7b", "mistral-large-123b", "qwen1.5-110b", "smollm-360m",
+    "qwen2.5-14b", "whisper-medium", "olmoe-1b-7b", "granite-moe-3b-a800m",
+    "qwen2-vl-7b", "xlstm-125m"))
 MESH_CELL_WORKERS = 4
 MESH_CELL_NICE = 19          # below the dry-run and the timed phases
 MESH_CELLS_TIMEOUT_S = 1000
@@ -3319,11 +3350,12 @@ def loss_shards_phase(dev, smi: str) -> dict:
 
 
 def mesh_cell(cell: tuple) -> dict:
-    """One F6 cell (arch, mesh shape, strategy) in this worker process, off
-    the card: tests/_mesh_cells.py's ``run_cell`` (the cut ``train_4k``
-    step on meta tensors over a fake process group), or with the strategy
-    "peak" one of PEAK_CELLS (``peak_cell``); its status, seconds and, if
-    it raised, the end of its traceback."""
+    """One F6 or POD cell (arch, mesh shape, strategy) in this worker
+    process, off the card: tests/_mesh_cells.py's ``run_cell`` (the cut
+    ``train_4k`` step on meta tensors over a fake process group), with the
+    strategy "peak" one of PEAK_CELLS (``peak_cell``), with "cause" one of
+    CAUSE_CELLS (its name in place of the arch, ``cause_cell``); its
+    status, seconds and, if it raised, the end of its traceback."""
     import os
     import traceback
     os.nice(MESH_CELL_NICE)
@@ -3340,6 +3372,8 @@ def mesh_cell(cell: tuple) -> dict:
     try:
         if strategy == "peak":
             out.update(strategy="2d", **peak_cell(arch))
+        elif strategy == "cause":
+            out.update(strategy="2d", **cause_cell(arch))
         else:
             got = run_cell(arch, mesh_shape, strategy)
             out["ok"] = (got["loss_shape"] == () and got["placements"]
@@ -3379,6 +3413,35 @@ def peak_cell(arch: str) -> dict:
     return out
 
 
+def cause_cell(name: str) -> dict:
+    """One of CAUSE_CELLS counted in this worker: the serving cell on meta
+    tensors over a fake process group of its mesh under 2d, by
+    ``core/autotune.py::strategy_costs``; its collective bytes a rank
+    beside the reference's and whether they stay within CAUSE_LIMIT of
+    them."""
+    from dataclasses import replace
+
+    from _mesh_cells import fake_mesh, view_rule_2_11
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.autotune import strategy_costs
+    from repro_torch.models.registry import build_model
+
+    arch, kw, kind, seq, batch, mesh_shape, ref = CAUSE_CELLS[name]
+    cfg = ARCHS[arch] if kw is None else replace(reduced(ARCHS[arch]), **kw)
+    with fake_mesh(mesh_shape) as mesh, view_rule_2_11():
+        run = strategy_costs(build_model(cfg),
+                             ShapeConfig("c", seq, batch, kind), mesh, "2d")
+    got = run.costs.collective_bytes
+    out = {"cell": arch, "mesh": "x".join(map(str, mesh_shape)),
+           "collective_bytes": got, "reference_bytes": ref,
+           "ratio": got / ref, "ok": 0 < got <= CAUSE_LIMIT * ref}
+    if not out["ok"]:
+        out["error"] = f"moves {got} collective bytes a rank, the " \
+                       f"reference {ref}"
+    return out
+
+
 @contextlib.contextmanager
 def mesh_cells_host():
     """The F6 cells on the host in MESH_CELL_WORKERS spawned processes, for
@@ -3387,7 +3450,9 @@ def mesh_cells_host():
     pool = multiprocessing.get_context("spawn").Pool(MESH_CELL_WORKERS,
                                                      maxtasksperchild=1)
     try:
-        cells = [(a, (16, 16), "peak") for a in PEAK_CELLS] + list(F6_CELLS)
+        cells = ([(a, (16, 16), "peak") for a in PEAK_CELLS]
+                 + [(c, (), "cause") for c in CAUSE_CELLS]
+                 + list(POD_CELLS) + list(F6_CELLS))
         yield pool.map_async(mesh_cell, cells, chunksize=1), time.time()
     finally:
         pool.terminate()
@@ -3405,8 +3470,10 @@ def mesh_cells_host_phase(started: tuple, smi: str) -> dict:
     cells = pending.get(timeout=max(1.0, MESH_CELLS_TIMEOUT_S
                                     - (t_read - t0)))
     out = {"torch": torch.__version__, "cells": [
-        {k: c[k] for k in ("arch", "mesh", "strategy", "ok", "seconds",
-                           "layers", "peak_bytes", "peak_max") if k in c}
+        {k: c[k] for k in ("arch", "cell", "mesh", "strategy", "ok",
+                           "seconds", "layers", "peak_bytes", "peak_max",
+                           "collective_bytes", "reference_bytes", "ratio")
+         if k in c}
         for c in cells], "ok": sum(c["ok"] for c in cells),
         "of": len(cells), "seconds": max(c["done_at"] for c in cells) - t0,
         "waited_s": time.time() - t_read, "workers": MESH_CELL_WORKERS}

@@ -23,15 +23,9 @@ def cell_fns(model, shape, strategy, mesh, opt_cfg=None):
 
     if shape.kind == "train":
         opt_cfg = opt_cfg or OptConfig()
-        # a microbatch must still cover every data-parallel shard, else
-        # each shard's microbatches are uneven; cap accordingly
-        sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
-        dp = 1
-        for ax in ("pod", "data"):
-            dp *= sizes.get(ax, 1)
-        n_micro = max(1, min(cfg.microbatches,
-                             shape.global_batch // max(dp, 1)))
-        step = make_train_step(model, opt_cfg, n_microbatches=n_micro)
+        step = make_train_step(model, opt_cfg,
+                               n_microbatches=n_microbatches(cfg, shape,
+                                                             mesh))
         state_meta = abstract_train_state(model)
         state_pl = tree_shardings(train_state_axes(model), mesh, strategy,
                                   state_meta)
@@ -52,6 +46,17 @@ def cell_fns(model, shape, strategy, mesh, opt_cfg=None):
     return (partial(_decode_at, model.decode, shape.seq_len - 1),
             (params_meta, batch_meta, cache_meta),
             (params_pl, batch_pl, cache_pl), (None, cache_pl), (2,))
+
+
+def n_microbatches(cfg, shape, mesh) -> int:
+    """A train cell's count of microbatches: the config's, capped so that
+    a microbatch still covers every data-parallel shard (else each shard's
+    microbatches are uneven)."""
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    dp = 1
+    for ax in ("pod", "data"):
+        dp *= sizes.get(ax, 1)
+    return max(1, min(cfg.microbatches, shape.global_batch // max(dp, 1)))
 
 
 def _decode_at(decode, pos: int, params, batch, cache):

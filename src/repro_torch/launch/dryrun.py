@@ -16,7 +16,9 @@ and runs the cell once on the meta device (no storage, no numbers):
   3. derive the roofline terms (``launch/roofline.py``);
   4. take the portable feature vector of the cell's one-device program
      (``core/autotune.py::cell_features``): the predictor's dataset, the
-     paper's pipeline applied to the framework itself;
+     paper's pipeline applied to the framework itself; the program does
+     not depend on the mesh beyond a train step's count of microbatches,
+     so ``--mesh both`` traces it once a cell where that count agrees;
   5. write the record to ``artifacts/dryrun_torch/<tag>.json``, beside
      (never over) the reference's ``artifacts/dryrun``.
 
@@ -46,13 +48,20 @@ ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 
 
 def dry_run(model, shape, mesh, *, mesh_name: str, strategy: str = "2d",
-            tag: str | None = None, extract_features: bool = True) -> dict:
+            tag: str | None = None, extract_features: bool = True,
+            graphs: dict | None = None) -> dict:
     """The record of ``model``'s ``shape`` cell on ``mesh`` under
     ``strategy`` (steps 1-4 of the module docstring), for any mesh and
-    any process group."""
-    from ..core.autotune import cell_features, strategy_costs
-    from ..core.features import LaunchConfig
+    any process group. The features are
+    ``core/autotune.py::cell_features``'s, from a trace kept in ``graphs``
+    for the calls of the same cell on other meshes: a train cell's by its
+    count of microbatches (``launch/cells.py``), which the mesh caps; a
+    serving cell's one."""
+    from ..core.autotune import strategy_costs
+    from ..core.features import (LaunchConfig, extract_from_graph,
+                                 trace_graph)
     from ..core.hlo_analysis import xla_cost_analysis
+    from .cells import cell_fns, n_microbatches
     from .mesh import mesh_devices
     from .roofline import analyze_cell
 
@@ -68,8 +77,14 @@ def dry_run(model, shape, mesh, *, mesh_name: str, strategy: str = "2d",
     rec = {"tag": tag, "status": "ok", "lower_s": run.seconds,
            "compile_s": 0.0, "report": asdict(rep)}
     if extract_features:
-        fv = cell_features(model, shape, mesh, LaunchConfig(
-            work_items=float(shape.tokens), n_shards=n_dev))
+        graphs = {} if graphs is None else graphs
+        key = n_microbatches(cfg, shape, mesh) if shape.kind == "train" \
+            else None
+        if key not in graphs:
+            fn, args, _, _, _ = cell_fns(model, shape, "2d", mesh)
+            graphs[key] = trace_graph(fn, *args)
+        launch = LaunchConfig(work_items=float(shape.tokens), n_shards=n_dev)
+        fv = extract_from_graph(graphs[key], launch)
         rec["features"] = fv.as_dict()
         rec["feature_aux"] = {k: float(v) for k, v in fv.aux.items()}
     return rec
@@ -77,9 +92,10 @@ def dry_run(model, shape, mesh, *, mesh_name: str, strategy: str = "2d",
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              strategy: str = "2d", verbose: bool = True,
-             save: bool = True, extract_features: bool = True) -> dict:
+             save: bool = True, extract_features: bool = True,
+             graphs: dict | None = None) -> dict:
     """One production cell on a fake process group of 256 or 512 ranks
-    (started here and destroyed after)."""
+    (started here and destroyed after); ``graphs`` as ``dry_run``'s."""
     import torch.distributed as dist
 
     from ..configs import SHAPES, get_config, supports_shape
@@ -110,7 +126,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         rec = dry_run(build_model(cfg), shape, mesh, mesh_name=mesh_name,
                       strategy=strategy, tag=tag,
-                      extract_features=extract_features)
+                      extract_features=extract_features, graphs=graphs)
     finally:
         dist.destroy_process_group()
     if verbose:
@@ -158,6 +174,7 @@ def main(argv=None):
     failures = []
     for arch in archs:
         for shape in shapes:
+            graphs = {}         # the cell's one-device programs, both meshes
             for mp in meshes:
                 mesh_name = "pod2x16x16" if mp else "pod16x16"
                 tag = f"{arch}__{shape}__{mesh_name}__{args.strategy}"
@@ -169,7 +186,7 @@ def main(argv=None):
                             continue
                 try:
                     run_cell(arch, shape, multi_pod=mp,
-                             strategy=args.strategy)
+                             strategy=args.strategy, graphs=graphs)
                 except Exception as e:          # recorded, and the run fails
                     traceback.print_exc()
                     failures.append(tag)

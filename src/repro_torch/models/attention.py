@@ -36,8 +36,9 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.attention import flash_attention
-from ..sharding.context import (constrain, current_ctx, on_mesh,
-                                product_on_shards, reduced)
+from ..sharding.context import (all_reduced, constrain, current_ctx,
+                                on_mesh, product_on_shards, reduced,
+                                takes_grad)
 from .common import (EMBED, HEAD_DIM, HEADS, KV_HEADS, ParamSpec, apply_rope,
                      f32, remat)
 
@@ -218,26 +219,71 @@ def _core_on_shards(core, q, k, v, *tables, n_out: int = 1):
     rank runs ``core`` on its shards, the reference's ``shard_map``. The
     shards keep q's batch sharding, and its head sharding where the KV
     heads shard on the same mesh dimension (a local q head then meets its
-    own KV head); heads (or ``head_dim``, the fallback) sharded any other
-    way are gathered first: attention cannot run on a ``head_dim`` shard.
-    The ``tables`` (rotary cos and sin, (B, S, ...)) follow the batch
-    sharding; ``core`` returns ``n_out`` tensors shaped as q or k."""
+    own KV head). Where q shards its heads and the KV heads do not (fewer
+    KV heads than the mesh dimension, as GQA has), q keeps its head shard
+    and each rank takes the KV heads its q heads read, out of K/V whole
+    there (``_kv_heads``), as GSPMD partitions the reference's grouped
+    einsum; their gradients are then partial sums there. Heads (or
+    ``head_dim``, the fallback) sharded any other way are gathered first:
+    attention cannot run on a ``head_dim`` shard. The ``tables`` (rotary
+    cos and sin, (B, S, ...)) follow the batch sharding; ``core`` returns
+    ``n_out`` tensors shaped as q or k (with two, the second is k rotated
+    by the tables)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
     mesh = q.device_mesh
-    qkv_pl = []
-    for a, b in zip(q.placements, k.placements):
+    H, Hkv = q.shape[2], k.shape[2]
+    qkv_pl, kv_pl, kv_grad = [], [], []
+    for i, (a, b) in enumerate(zip(q.placements, k.placements)):
         if a == Shard(0) or (a == Shard(2) and b == Shard(2)):
-            qkv_pl.append(a)
+            qkv_pl.append(a), kv_pl.append(a), kv_grad.append(a)
+        elif a == Shard(2) and _kv_heads_follow(H, Hkv, mesh.size(i)):
+            qkv_pl.append(a), kv_pl.append(Replicate())
+            kv_grad.append(Partial())
         else:
-            qkv_pl.append(Replicate())
+            qkv_pl.append(Replicate()), kv_pl.append(Replicate())
+            kv_grad.append(Replicate())
     rope_pl = [p if p == Shard(0) else Replicate() for p in qkv_pl]
-    q, k, v = (t.redistribute(mesh, qkv_pl) for t in (q, k, v))
+    q = q.redistribute(mesh, qkv_pl)
+    k, v = (t.redistribute(mesh, kv_pl) for t in (k, v))
     tables = tuple(on_mesh(t, mesh).redistribute(mesh, rope_pl)
                    for t in tables)
-    fn = local_map(core,
-                   out_placements=qkv_pl if n_out == 1 else (qkv_pl,) * n_out,
-                   in_placements=(qkv_pl,) * 3 + (rope_pl,) * len(tables),
+    if kv_pl != qkv_pl:
+        local, offset = compute_local_shape_and_global_offset(q.shape, mesh,
+                                                              qkv_pl)
+        core = partial(_kv_heads, core, H // Hkv, offset[2], local[2],
+                       n_out)
+    out_pl = qkv_pl if n_out == 1 else (qkv_pl, kv_pl)
+    fn = local_map(core, out_placements=out_pl,
+                   in_placements=(qkv_pl, kv_pl, kv_pl)
+                   + (rope_pl,) * len(tables),
+                   in_grad_placements=(qkv_pl, kv_grad, kv_grad)
+                   + (rope_pl,) * len(tables),
                    device_mesh=mesh)
     return fn, (q, k, v, *tables)
+
+
+def _kv_heads_follow(H: int, Hkv: int, m: int) -> bool:
+    """Whether m ranks that each hold H / m of H q heads can each read a
+    whole run of the Hkv KV heads: H / m a multiple of the group H / Hkv,
+    or a divisor of it."""
+    if H % m or H % Hkv:
+        return False
+    hq, g = H // m, H // Hkv
+    return hq % g == 0 or g % hq == 0
+
+
+def _kv_heads(core, g: int, q0: int, hq: int, n_out: int, q, k, v,
+              *tables):
+    """``core`` of a rank's q heads q0 ... q0 + hq - 1 against the KV heads
+    they read (group size g) out of the whole k and v; with two outputs,
+    the second is the whole k rotated (``_prefill_core``'s)."""
+    kv0, n = q0 // g, max(1, hq // g)
+    out = core(q, k[:, :, kv0:kv0 + n], v[:, :, kv0:kv0 + n], *tables)
+    if n_out == 1:
+        return out
+    return out[0], apply_rope(k, *tables)
 
 
 def _key_part(kernel: bool, start: int, q, k, v, cos_q, sin_q, cos_k, sin_k):
@@ -379,16 +425,11 @@ def _decode_local(pos, start, seq_groups, q, k, v, k_cache, v_cache, cos,
         v_cache[:, pos - start] = v[:, 0].to(v_cache.dtype)
     if not seq_groups:
         return _sdpa(q, k_cache, v_cache, causal=False, kv_valid_len=pos + 1)
-    import torch.distributed._functional_collectives as funcol
-
-    def reduce(t, op):
-        for g in seq_groups:
-            t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
-        return t
     # this rank's positions start onwards: those up to pos are valid
     o, lse = _sdpa(q, k_cache, v_cache, causal=False,
                    kv_valid_len=pos + 1 - start, return_lse=True)
-    return merge_partials(o, lse, reduce)
+    return merge_partials(o, lse, lambda t, op: all_reduced(t, op,
+                                                            seq_groups))
 
 
 def _decode_on_shards(q, k, v, k_cache, v_cache, cos, sin, pos: int):
@@ -428,11 +469,52 @@ def _decode_on_shards(q, k, v, k_cache, v_cache, cos, sin, pos: int):
 
 def attend_full(q, k, v):
     """Attention with no mask (``_sdpa``); on a mesh, on each rank's
-    shards."""
+    shards, and, where no gradient is taken, on each rank's own keys where
+    K/V shard their sequence (``_full_on_key_shards``: the enc-dec's cross
+    cache in decode; its merge derives no gradient placements, so a
+    training step gathers the keys, ``_core_on_shards``)."""
+    if (isinstance(k, DTensor) and Shard(1) in k.placements
+            and not takes_grad(q, k, v)):
+        return _full_on_key_shards(q, k, v)
     core, args = partial(_sdpa, causal=False), (q, k, v)
     if isinstance(q, DTensor):
         core, args = _core_on_shards(core, *args)
     return core(*args)
+
+
+def _full_local(seq_groups, q, k, v):
+    """One rank's unmasked attention over its own keys, the ranks' partial
+    softmaxes merged over ``seq_groups`` (``merge_partials``)."""
+    o, lse = _sdpa(q, k, v, causal=False, return_lse=True)
+    return merge_partials(o, lse, lambda t, op: all_reduced(t, op,
+                                                            seq_groups))
+
+
+def _full_on_key_shards(q, k, v):
+    """``attend_full`` of K/V (B, Skv, Hkv, Dh) whose sequence is sharded
+    over some mesh dimensions, as ``_decode_on_shards`` attends a KV cache:
+    K/V keep their placements (no rank gathers the keys); q follows their
+    batch and head shards and is whole where they shard the sequence, and
+    each rank's partial softmax over its keys is merged over those
+    dimensions. Heads that only q shards are gathered."""
+    mesh = k.device_mesh
+    v = v.redistribute(mesh, k.placements)
+    q_pl, seq_groups = [], []
+    for i, a in enumerate(k.placements):
+        if a in (Shard(0), Shard(2)):
+            q_pl.append(a)
+        elif a == Shard(1):
+            q_pl.append(Replicate())
+            seq_groups.append(mesh.get_group(i))
+        elif a == Replicate():
+            q_pl.append(a)
+        else:
+            raise ValueError(f"attention over K/V placed "
+                             f"{tuple(k.placements)}")
+    fn = local_map(partial(_full_local, seq_groups), out_placements=q_pl,
+                   in_placements=(q_pl, tuple(k.placements),
+                                  tuple(k.placements)), device_mesh=mesh)
+    return fn(q.redistribute(mesh, q_pl), k, v)
 
 
 def attend_cross(cfg, p, x, kv_cache):

@@ -212,10 +212,12 @@ def mrope_cos_sin(positions3, head_dim: int, theta: float,
     dev = positions3.device
     freqs = rope_freqs(head_dim, theta, dev)                 # (D/2,)
     ang_txy = positions3.float()[..., None, :] * freqs[None, None, :, None]
-    # ang_txy: (B, S, D/2, 3); pick the driving channel of each band
-    sel = torch.repeat_interleave(torch.arange(3, device=dev),
-                                  torch.tensor(sections, device=dev),
-                                  output_size=sum(sections))
+    # ang_txy: (B, S, D/2, 3); pick the driving channel of each band: the
+    # count of section ends at or below each band (made from ``arange``
+    # alone, so that a fake mode traces it: a tensor of the sections' values
+    # would be a constant outside the trace)
+    band = torch.arange(head_dim // 2, device=dev)
+    sel = (band >= sections[0]).long() + (band >= sections[0] + sections[1]).long()
     ang = torch.gather(ang_txy, -1, sel[None, None, :, None].expand(
         *ang_txy.shape[:-1], 1))[..., 0]
     return torch.cos(ang), torch.sin(ang)

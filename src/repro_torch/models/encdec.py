@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..sharding.context import embedding_rows, on_mesh, project
+from ..sharding.context import embedding_rows, on_mesh, project, residual
 from .attention import (_out, _qkv, attend_cross, attend_decode,
                         attend_full, attend_prefill, attend_train,
                         attn_specs, cross_kv, kv_cache_shape)
@@ -86,8 +86,8 @@ def _enc_layer(cfg, p, x):
     rotation), then the GELU MLP."""
     h = _norm(p["ln1"], x, cfg)
     q, k, v = _qkv(cfg, p["attn"], h)
-    x = x + _out(attend_full(q, k, v), p["attn"]["wo"])
-    return x + gelu_mlp(p["mlp"], _norm(p["ln2"], x, cfg))
+    x = residual(x, _out(attend_full(q, k, v), p["attn"]["wo"]))
+    return residual(x, gelu_mlp(p["mlp"], _norm(p["ln2"], x, cfg)))
 
 
 def encode(cfg, params, frames, train: bool = False):
@@ -117,12 +117,12 @@ def _dec_layer(cfg, p, x, cos, sin, mode, kv=None, enc_out=None,
                                     self_cache, pos)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    x = x + a
+    x = residual(x, a)
     h = _norm(p["ln2"], x, cfg)
     if kv is None:
         kv = cross_kv(cfg, p["cross_attn"], enc_out)
-    x = x + attend_cross(cfg, p["cross_attn"], h, kv)
-    x = x + gelu_mlp(p["mlp"], _norm(p["ln3"], x, cfg))
+    x = residual(x, attend_cross(cfg, p["cross_attn"], h, kv))
+    x = residual(x, gelu_mlp(p["mlp"], _norm(p["ln3"], x, cfg)))
     return x, kv, new_self
 
 

@@ -32,7 +32,7 @@ import math
 import torch
 
 from ..sharding.context import (constrain, constrain_tree, current_ctx,
-                                embedding_rows, project)
+                                embedding_rows, project, residual)
 from .attention import (attend_decode, attend_prefill, attend_train,
                         attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, KV_HEADS, VOCAB, ParamSpec,
@@ -98,13 +98,13 @@ def _block_apply(cfg, p, x, cos, sin, mode, cache=None, pos=None):
         a, new_cache = attend_decode(cfg, p["attn"], h, cos, sin, cache, pos)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    x = x + a
+    x = residual(x, a)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.n_experts:
         m, aux = moe_apply(cfg, p["moe"], h)
     else:
         m, aux = swiglu(p["mlp"], h), torch.zeros((), device=x.device)
-    return x + m, new_cache, aux
+    return residual(x, m), new_cache, aux
 
 
 def _train_layer(cfg, lp, x, cos, sin):
@@ -151,6 +151,7 @@ def _run_blocks(cfg, params, x, cos, sin, mode, caches=None, pos=None):
         cache = (caches[0][i], caches[1][i]) if mode == "decode" else None
         x, (k, v), _ = _block_apply(cfg, _cast_block(cfg, lp), x, cos, sin,
                                     mode, cache=cache, pos=pos)
+        x = constrain(x, ("act_batch", "act_seq", "act_embed"))
         ks.append(k)
         vs.append(v)
     if mode == "decode":

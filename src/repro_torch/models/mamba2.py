@@ -24,6 +24,13 @@ the inner dimension (fault F11). The weights' gradients are partial sums
 over the ranks' rows and heads, reduce-scattered to the parameters' own
 placements in the backward of their gathers. The norm's sum over the inner
 dimension and the out-projection's partial sum are DTensor's.
+
+Where no gradient is taken (serving) and it moves fewer bytes, the
+in-projection keeps its shard instead: ``project`` makes the projection
+on its shards (its columns sharded as the weight's) and the projection,
+gathered over its columns, goes to the mixer in place of u and the
+weight, as GSPMD moves the reference's activations there; a decode step
+projects one token a row, and the weight is (d_model, 2 d_inner + ...).
 """
 from __future__ import annotations
 
@@ -35,7 +42,9 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.mamba import ops
 from ..kernels.mamba.ref import ssd_chunked
-from ..sharding.context import constrain, current_ctx, project
+from ..sharding.context import (constrain, current_ctx, gather_bytes,
+                                local_bytes, moves_activation, project,
+                                takes_grad)
 from ..sharding.rules import placements, spec_for_axes
 from .common import CONV, EMBED, HEADS, INNER, ParamSpec, rms_norm, silu, softplus
 
@@ -99,17 +108,20 @@ def mamba_mix(cfg, p, u, ssm_state=None, conv_state=None, *, decode=False):
     return out, (new_conv, new_ssm)
 
 
-def _mix(cfg, p, u, ssm_state=None, conv_state=None, decode=False):
+def _mix(cfg, p, u, ssm_state=None, conv_state=None, decode=False,
+         proj=None):
     """The mixer of plain tensors up to its gated norm: (y (B, S, di) with
     the skip added, z, the conv state, the SSM state). The head count, and
     with it di, is ``a_log``'s length: on a mesh, a rank's own heads, with
     ``in_proj``, ``conv_w`` and ``conv_b`` their columns in the same
-    layout."""
+    layout. ``proj``, where given, is ``u``'s in-projection in that layout
+    (u and ``in_proj`` are then not read)."""
     N, P = cfg.ssm_state, cfg.ssm_head_dim
     H = p["a_log"].shape[0]
     di = H * P
-    dtp = u.dtype
-    proj = u @ p["in_proj"].to(dtp)                             # (B,S,2di+2N+H)
+    if proj is None:
+        proj = u @ p["in_proj"].to(u.dtype)                     # (B,S,2di+2N+H)
+    dtp = proj.dtype
     z, xbc, dt_raw = _split_proj(di, N, proj)
     xbc, new_conv = _causal_conv(p, xbc, conv_state if decode else None)
     x = xbc[..., :di]
@@ -169,18 +181,24 @@ def _mix_local(cfg, H: int, h0: int, decode: bool, u, in_proj, conv_w,
                conv_state=None):
     """``_mix`` on one rank's local tensors: heads h0 ... of H (the length
     of its ``a_log``) against the gathered in-projection and conv weights
-    and the gathered conv state; returns (y, z, the conv state's x
+    and the gathered conv state (``in_proj`` None: u is its projection,
+    every column); returns (y, z, the conv state's x
     channels and its B and C channels, the SSM state)."""
     cols, conv = _columns(cfg, H, h0, a_log.shape[0], u.device)
     p = {"in_proj": in_proj, "conv_w": conv_w, "conv_b": conv_b,
          "a_log": a_log, "dt_bias": dt_bias, "d_skip": d_skip}
+    proj = u if in_proj is None else None       # u is the projection
     if cols is not None:
-        p.update(in_proj=in_proj.index_select(1, cols),
-                 conv_w=conv_w.index_select(1, conv),
+        if proj is None:
+            p["in_proj"] = in_proj.index_select(1, cols)
+        else:
+            proj = proj.index_select(-1, cols)
+        p.update(conv_w=conv_w.index_select(1, conv),
                  conv_b=conv_b.index_select(0, conv))
         if conv_state is not None:
             conv_state = conv_state.index_select(2, conv)
-    y, z, new_conv, new_ssm = _mix(cfg, p, u, ssm_state, conv_state, decode)
+    y, z, new_conv, new_ssm = _mix(cfg, p, u, ssm_state, conv_state, decode,
+                                   proj=proj)
     di = y.shape[-1]
     return y, z, new_conv[..., :di], new_conv[..., di:], new_ssm
 
@@ -215,14 +233,20 @@ def _mix_on_shards(cfg, p, u, ssm_state, conv_state, decode):
     whole = [Replicate()] * mesh.ndim
     _, offset = compute_local_shape_and_global_offset((Bsz, S, H), mesh, pl)
     dtp = u.dtype
-    args = [u.redistribute(mesh, rows),
-            p["in_proj"].to(dtp).redistribute(mesh, whole),
+    in_proj = p["in_proj"].to(dtp)
+    if _projects_first(u, in_proj, rows):
+        first = [project(u, in_proj).redistribute(mesh, rows), None]
+    else:
+        first = [u.redistribute(mesh, rows),
+                 in_proj.redistribute(mesh, whole)]
+    args = [*first,
             p["conv_w"].to(dtp).redistribute(mesh, whole),
             p["conv_b"].to(dtp).redistribute(mesh, whole),
             *(p[k].redistribute(mesh, heads)
               for k in ("a_log", "dt_bias", "d_skip"))]
-    in_pl = [rows, whole, whole, whole, heads, heads, heads]
-    grad_pl = [u_grad, summed, summed, summed] + [head_grad] * 3
+    w_pl = None if first[1] is None else whole
+    in_pl = [rows, w_pl, whole, whole, heads, heads, heads]
+    grad_pl = [u_grad, w_pl and summed, summed, summed] + [head_grad] * 3
     for t, t_pl in ((ssm_state, state), (conv_state, rows)):
         t_pl = None if t is None else t_pl
         args.append(None if t is None else t.redistribute(mesh, t_pl))
@@ -237,6 +261,24 @@ def _mix_on_shards(cfg, p, u, ssm_state, conv_state, decode):
     if not u.requires_grad:
         new_conv = torch.cat([conv_x.redistribute(mesh, rows), conv_bc], -1)
     return y, z, new_conv, new_ssm
+
+
+def _projects_first(u, in_proj, rows) -> bool:
+    """Whether the mixer of a serving step takes u's in-projection made on
+    the weight's shards (``project``) and gathered over its columns to
+    ``rows``, because that moves fewer bytes than gathering the weight
+    whole (``moves_activation``; the move costed at no more than the
+    projection's and u's shards on ``rows``); a step that takes a gradient
+    never does."""
+    if takes_grad(u, in_proj):
+        return False
+    mesh = u.device_mesh
+    isz = u.element_size()
+    gather = gather_bytes(in_proj.shape, in_proj.placements, mesh, isz)
+    shape = (*u.shape[:-1], in_proj.shape[1])
+    moved = local_bytes(shape, rows, mesh, isz) + local_bytes(
+        u.shape, rows, mesh, isz)
+    return moves_activation(moved, gather)
 
 
 def mamba_cache_shapes(cfg, batch: int):

@@ -22,8 +22,17 @@ ranks that split the tokens (the reference's "local-scatter +
 all-reduce"); the buffer and the expert outputs are constrained to
 ("act_expert", "act_expert_cap", None): the experts over the model axis
 when it divides them, else the capacity slots (capacity + 1 is a multiple
-of 16). The experts run on those shards, and each rank gathers its own
-tokens' outputs from the whole (E, C + 1, d) result.
+of 16). Each rank keeps its shard of the partial buffer before the sum,
+so the sum moves only that shard. The experts run on those shards, their
+weights gathered once a layer. Each rank reads its own tokens' outputs
+from its shard of the (E, C + 1, d) result (a token whose expert or slot
+another rank holds reads zeros there), and the k choices' sum is reduced
+once over the dimensions that shard the result (``_gather_on_shards``).
+
+Where no gradient is taken (serving) and it moves fewer bytes, the
+experts keep their weights' shards of d_model and d_ff and move the
+buffer instead (``_experts_on_shards``): a decode step's buffer holds a
+few slots an expert, a weight whole experts.
 
 The reference names the dispatched buffer for its remat policy
 (``save_only_these_names("moe_buf")``), so its backward keeps the buffer
@@ -40,7 +49,9 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from ..sharding.context import constrain, project
+from ..sharding.context import (all_reduced, constrain,
+                                constrain_placements, gather_bytes,
+                                moves_activation, project, takes_grad)
 from ..sharding.rules import distribute
 from .common import EMBED, EXPERT, MLP, ParamSpec, f32, silu
 
@@ -152,9 +163,13 @@ def _scatter_rows(n_experts: int, cap: int, x, e_idx, keep, slot):
                     keep.reshape(-1), slot.reshape(-1), n_experts, cap)
 
 
-def _gather_rows(y, e_idx, slot, w):
-    """Each of one rank's (B, S) tokens' expert output, weighted."""
-    return y[e_idx, slot] * w[..., None]
+def _gather_rows(e0: int, s0: int, y, e_idx, slot, w):
+    """Each of one rank's (B, S) tokens' expert output, weighted, from
+    y's experts e0 ... and slots s0 ... (zeros for a token outside them)."""
+    e, s = e_idx - e0, slot - s0
+    inside = (e >= 0) & (e < y.shape[0]) & (s >= 0) & (s < y.shape[1])
+    rows = y[torch.where(inside, e, 0), torch.where(inside, s, 0)]
+    return rows * (w * inside)[..., None]
 
 
 def _moe_on_mesh(cfg, p, x):
@@ -182,29 +197,151 @@ def _moe_on_mesh(cfg, p, x):
     scatter = local_map(partial(_scatter_rows, E, cap),
                         out_placements=tok_grad,
                         in_placements=(tok,) * 4, device_mesh=mesh)
-    gather = local_map(_gather_rows, out_placements=tok,
-                       in_placements=(rep, tok, tok, tok),
-                       in_grad_placements=(tok_grad, tok, tok, tok),
-                       device_mesh=mesh)
-    out = torch.zeros_like(x)
+    serving = not takes_grad(x, *wts)
+    outs, gathered = [], None
     for choice in range(cfg.experts_per_tok):
         keep, slot = (distribute(t.reshape(B, S), mesh, tok) for t in
                       dispatch_slots(choices[:, choice], E, cap))
         e_idx = top_e[..., choice]
-        buf = constrain(scatter(x, e_idx, keep, slot),
-                        ("act_expert", "act_expert_cap", None))
-        # the weights follow the buffer's expert shards; over its slot
-        # shards they are gathered, and their gradients there are partial
+        buf = _shard_then_sum(scatter(x, e_idx, keep, slot),
+                              ("act_expert", "act_expert_cap", None))
         b_pl = list(buf.placements)
-        w_pl = [a if a == Shard(0) else Replicate() for a in b_pl]
-        w_grad = [Partial() if isinstance(a, Shard) and a != Shard(0) else b
-                  for a, b in zip(b_pl, w_pl)]
-        y = local_map(experts, out_placements=b_pl,
-                      in_placements=(b_pl,) + (w_pl,) * 3,
-                      in_grad_placements=(b_pl,) + (w_grad,) * 3,
-                      device_mesh=mesh)(
-            buf, *(w.redistribute(mesh, w_pl) for w in wts))
-        y = constrain(y, ("act_expert", "act_expert_cap", None))
+        if serving:
+            y = _experts_on_shards(buf, wts, tok)
+        else:
+            # the weights follow the buffer's expert shards; over its slot
+            # shards they are gathered, once a layer, and their gradients
+            # there are partial
+            w_pl = [a if a == Shard(0) else Replicate() for a in b_pl]
+            w_grad = [Partial() if isinstance(a, Shard) and a != Shard(0)
+                      else b for a, b in zip(b_pl, w_pl)]
+            if gathered is None:
+                gathered = [w.redistribute(mesh, w_pl) for w in wts]
+            y = local_map(experts, out_placements=b_pl,
+                          in_placements=(b_pl,) + (w_pl,) * 3,
+                          in_grad_placements=(b_pl,) + (w_grad,) * 3,
+                          device_mesh=mesh)(buf, *gathered)
+            y = constrain(y, ("act_expert", "act_expert_cap", None))
         w = (top_p[..., choice] * keep).to(dt)
-        out = out + gather(y.redistribute(mesh, rep), e_idx, slot, w)
+        outs.append(_gather_on_shards(y, e_idx, slot, w, tok))
+    out = outs[0]
+    for o in outs[1:]:
+        out = out + o
+    if list(out.placements) != tok:
+        out = out.redistribute(mesh, tok)
     return out, aux
+
+
+def _shard_then_sum(buf, axes):
+    """``constrain(buf, axes)`` of a partial buffer: each rank first keeps
+    its shard of the dimensions that the axes shard (a local slice), so
+    that the partial sum then moves only that shard."""
+    mesh = buf.device_mesh
+    want = constrain_placements(buf, axes)
+    first = [b if a == Replicate() and isinstance(b, Shard) else a
+             for a, b in zip(buf.placements, want)]
+    if first != list(buf.placements):
+        buf = buf.redistribute(mesh, first)
+    return constrain(buf, axes)
+
+
+def _experts_on_shards(buf, wts, tok):
+    """The experts of a serving step on each rank's shards: per mesh
+    dimension, the weights keep their shard of d_model or d_ff where
+    moving the buffer there costs fewer bytes than gathering the three
+    weights (``moves_activation``): on d_model the buffer takes the same
+    shard of its d (a local slice) and the two up-projections are partial
+    sums, all-reduced; on d_ff the buffer is whole there (gathered from
+    its slot shards), the up-projections keep the d_ff shard and the
+    down-projection is a partial sum. Elsewhere the weights follow the
+    buffer's expert shards and are gathered, as in training. The moves
+    are costed with the output's trip to the rows ``tok`` (made whole
+    where they are sharded). Returns the (E, C + 1, d) output, ``Partial``
+    where the down-projection was."""
+    mesh = buf.device_mesh
+    b_pl, wi_pl = list(buf.placements), list(wts[0].placements)
+    buf_in, wi_in, wo_in, y_pl, groups = [], [], [], [], []
+    isz = buf.element_size()
+    experts_pl = [Shard(0) if b == Shard(0) else Replicate() for b in b_pl]
+    h_shape = (*buf.shape[:2], wts[0].shape[2])
+    for i, (b, c, t) in enumerate(zip(b_pl, wi_pl, tok)):
+        g = mesh.size(i)
+        # the weights gathered, as the training route gathers them
+        gather = sum(gather_bytes(w.shape, [
+            Shard(0) if q == Shard(0) and bj == Shard(0) else Replicate()
+            for q, bj in zip(w.placements, b_pl)], mesh, isz, (i,))
+            for w in wts)
+        # y made whole there for the rows (``_gather_on_shards``), where
+        # the rows are sharded
+        y_rows = gather_bytes(buf.shape, experts_pl, mesh, isz, (i,)) \
+            if isinstance(t, Shard) else 0.0
+        if g > 1 and c == Shard(1) and b == Replicate():
+            moved = 4 * gather_bytes(h_shape, experts_pl, mesh, isz, (i,))
+            if moves_activation(moved + y_rows, gather):
+                buf_in.append(Shard(2)), wi_in.append(c)
+                wo_in.append(Shard(2)), y_pl.append(Shard(2))
+                groups.append(mesh.get_group(i))
+                continue
+        if g > 1 and c == Shard(2) and b in (Replicate(), Shard(1)):
+            moved = 0.0 if b == Replicate() else \
+                gather_bytes(buf.shape, experts_pl, mesh, isz, (i,))
+            if moves_activation(moved + 2 * y_rows, gather):
+                buf_in.append(Replicate()), wi_in.append(c)
+                wo_in.append(Shard(1)), y_pl.append(Partial())
+                continue
+        keep = Shard(0) if b == Shard(0) else Replicate()
+        buf_in.append(b), wi_in.append(keep), wo_in.append(keep)
+        y_pl.append(b)
+    fn = local_map(partial(_experts_local, groups), out_placements=y_pl,
+                   in_placements=(buf_in, wi_in, wi_in, wo_in),
+                   device_mesh=mesh)
+    return fn(buf.redistribute(mesh, buf_in),
+              *(w.redistribute(mesh, pl) for w, pl in
+                zip(wts, (wi_in, wi_in, wo_in))))
+
+
+def _experts_local(groups, buf, wi_gate, wi_up, wo):
+    """``experts`` on one rank's shards: the up-projections' partial sums
+    all-reduced over ``groups`` first (they contracted a d_model shard)."""
+    hg = all_reduced(torch.einsum("ecd,edf->ecf", buf, wi_gate), "sum",
+                     groups)
+    hu = all_reduced(torch.einsum("ecd,edf->ecf", buf, wi_up), "sum", groups)
+    return torch.einsum("ecf,efd->ecd", silu(hg) * hu, wo)
+
+
+def _gather_on_shards(y, e_idx, slot, w, tok):
+    """Each of the rank's tokens' rows of the expert output y (E, C + 1,
+    d), weighted by w, on y's shards. Per mesh dimension: where the tokens
+    are sharded y is made whole; where they are not, each rank reads its
+    tokens' rows from its own shard of the experts or slots (zeros for a
+    row it does not hold) or from its partial y, and the rows are a
+    partial sum there, or keeps y's shard of d. The rows' gradient reaches
+    y's shards alike (a partial sum where the tokens are sharded), and
+    the weights' is a partial sum where the rows are."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = y.device_mesh
+    y_pl, out_pl, y_grad = [], [], []
+    for a, t in zip(y.placements, tok):
+        if isinstance(t, Shard):
+            y_pl.append(Replicate()), out_pl.append(t)
+            y_grad.append(Partial())
+        elif a == Shard(2):
+            y_pl.append(a), out_pl.append(Shard(2)), y_grad.append(a)
+        elif a.is_partial() or a in (Shard(0), Shard(1)):
+            y_pl.append(a), out_pl.append(Partial()), y_grad.append(a)
+        else:
+            y_pl.append(a), out_pl.append(a), y_grad.append(a)
+    if y_pl != list(y.placements):
+        y = y.redistribute(mesh, y_pl)
+    # a row's weight meets one rank's y: its gradient is a partial sum
+    # wherever the rows are
+    w_grad = [Partial() if o.is_partial() else t
+              for o, t in zip(out_pl, tok)]
+    _, offset = compute_local_shape_and_global_offset(y.shape, mesh, y_pl)
+    return local_map(partial(_gather_rows, offset[0], offset[1]),
+                     out_placements=out_pl,
+                     in_placements=(y_pl, tok, tok, tok),
+                     in_grad_placements=(y_grad, tok, tok, w_grad),
+                     device_mesh=mesh)(y, e_idx, slot, w)

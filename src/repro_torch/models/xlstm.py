@@ -171,9 +171,16 @@ def _cell_local(chunk, q, k, v, logi, f_pre, *state):
 
 def _cell_on_shards(q, k, v, logi, f_pre, state, chunk):
     """``_cell_local`` on each rank's shards; a carried (C, n, m) goes onto
-    the gates' batch and head shards."""
+    the gates' batch and head shards. A carried DTensor state (a decode
+    step's cache) keeps its own: the recurrence takes its batch and head
+    shards, so the new state goes back into the cache as it is, where a
+    head shard over a mesh dimension that the cache replicates would have
+    it gathered there."""
     mesh = q.device_mesh
     pl = _head_shards(q, 2)
+    if state is not None and isinstance(state[0], DTensor):
+        pl = [Shard(2) if a == Shard(1) else a if a == Shard(0)
+              else Replicate() for a in state[0].placements]
     st = [Shard(1) if a == Shard(2) else a for a in pl]
     state = () if state is None else tuple(state)
     fn = local_map(partial(_cell_local, chunk),

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..sharding.context import constrain, embedding_rows, project
+from ..sharding.context import constrain, embedding_rows, project, residual
 from .common import (BATCH, EMBED, VOCAB, ParamSpec, cross_entropy_loss,
                      remat, rms_norm, stack_specs, unstack)
 from .xlstm import mlstm_apply, mlstm_specs, slstm_apply, slstm_specs
@@ -48,14 +48,14 @@ def xlstm_specs(cfg) -> dict:
 
 def _m_train(cfg, lp, x):
     out, _ = mlstm_apply(cfg, lp["cell"], rms_norm(x, lp["ln"], cfg.norm_eps))
-    return x + out
+    return residual(x, out)
 
 
 def _train_group(cfg, m_layers, sp, x):
     for lp in m_layers:
         x = remat(cfg.remat, _m_train, cfg, lp, x)
     out, _ = slstm_apply(cfg, sp["cell"], rms_norm(x, sp["ln"], cfg.norm_eps))
-    return x + out
+    return residual(x, out)
 
 
 def _write(dst: tuple, src: tuple) -> None:
@@ -84,7 +84,7 @@ def _forward(cfg, params, x, mode, states=None):
             st = tuple(a[g, e] for a in states["m"]) if decode else None
             h = rms_norm(x, lp["ln"], cfg.norm_eps)
             out, new = mlstm_apply(cfg, lp["cell"], h, state=st, decode=decode)
-            x = x + out
+            x = residual(x, out)
             if decode:
                 _write(st, new)
             else:
@@ -92,7 +92,7 @@ def _forward(cfg, params, x, mode, states=None):
         st = tuple(a[g] for a in states["s"]) if decode else None
         h = rms_norm(x, sp["ln"], cfg.norm_eps)
         out, new = slstm_apply(cfg, sp["cell"], h, state=st, decode=decode)
-        x = x + out
+        x = residual(x, out)
         if decode:
             _write(st, new)
         else:

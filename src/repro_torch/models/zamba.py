@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..sharding.context import constrain, embedding_rows, project
+from ..sharding.context import constrain, embedding_rows, project, residual
 from .attention import (attend_decode, attend_prefill, attend_train,
                         attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, HEADS, KV_HEADS, LORA, VOCAB,
@@ -84,7 +84,7 @@ def _shared_block(cfg, shared, lora, x, cos, sin, mode, kv_cache=None,
         a, new_cache = attend_decode(cfg, attn_p, h, cos, sin, kv_cache, pos)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    x = x + a
+    x = residual(x, a)
     h = rms_norm(x, shared["ln2"], cfg.norm_eps)
     mlp_p = dict(shared["mlp"])
     mlp_p["wi_gate"] = mlp_p["wi_gate"] + (

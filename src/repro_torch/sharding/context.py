@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 
 import torch
 from torch.distributed import _functional_collectives as funcol
@@ -94,15 +95,23 @@ def constrain(x, axes: tuple):
     """Redistribute the DTensor ``x`` to the placements of the logical
     ``axes`` (activation axis names; None = replicated dim). A no-op
     outside a scope and on a plain tensor."""
-    ctx = _CTX.get()
-    if ctx is None or not isinstance(x, DTensor):
+    if _CTX.get() is None or not isinstance(x, DTensor):
         return x
-    mesh, strat = ctx
-    want = placements(spec_for_axes(tuple(axes), strat, mesh,
-                                    tuple(x.shape)), mesh)
-    if tuple(x.placements) == want:
+    want = constrain_placements(x, axes)
+    if list(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def constrain_placements(x, axes: tuple) -> list:
+    """The placements ``constrain(x, axes)`` gives the DTensor x inside a
+    scope; x's own outside one."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return list(x.placements)
+    mesh, strat = ctx
+    return list(placements(spec_for_axes(tuple(axes), strat, mesh,
+                                         tuple(x.shape)), mesh))
 
 
 def constrain_tree(tree, axes_tree):
@@ -156,6 +165,18 @@ def reduced(t):
                                           else a for a in t.placements])
 
 
+def residual(x, a):
+    """``x + a``, a sublayer's output ``a`` added to the residual stream x,
+    with a's partial sums reduced first (``reduced``). DTensor's rule for
+    a replicated operand plus a partial one differs between torch
+    versions: 2.11 reduces the partial sum there, in the activation's
+    dtype, as GSPMD reduces the reference's; 2.13 keeps the sum partial and
+    leaves the reduction to the next op that needs it, a norm's float32
+    mean and variance (twice the bytes, and again in every projection of
+    that norm's partial output)."""
+    return x + reduced(a)
+
+
 def product_on_shards(fn, x, w, contract: int = 1):
     """``fn(x, w)``, a product contracting x's last ``contract`` dimensions
     with w's first ``contract`` ones, run by each rank on its shards of the
@@ -186,12 +207,179 @@ def product_on_shards(fn, x, w, contract: int = 1):
             pl = (Replicate(),) * 5
         for dst, p in zip((x_pl, w_pl, out_pl, x_grad, w_grad), pl):
             dst.append(p)
+    given = list(out_pl)
+    serving = not takes_grad(x, w)
+    if serving:
+        _move_activations(x, w, contract, x_pl, w_pl, out_pl)
     if any(isinstance(a, Shard) and a.dim < lead and isinstance(b, Shard)
            for a, b in zip(x.placements, w.placements)):
         fn = _regathering(fn, w, w_pl)
     fn = local_map(fn, out_placements=out_pl, in_placements=(x_pl, w_pl),
                    in_grad_placements=(x_grad, w_grad), device_mesh=mesh)
-    return fn(x.redistribute(mesh, x_pl), w.redistribute(mesh, w_pl))
+    if not serving:
+        return fn(x.redistribute(mesh, x_pl), w.redistribute(mesh, w_pl))
+    out = fn(moved_to(x, x_pl), w.redistribute(mesh, w_pl))
+    return out if out_pl == given else moved_to(out, given)
+
+
+def takes_grad(*tensors) -> bool:
+    """Whether autograd records a product of ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def moved_to(t, placements):
+    """The DTensor ``t`` redistributed to ``placements``, where no gradient
+    is taken: a mesh dimension whose shard moves from one tensor dimension
+    to another moves it by one all-to-all where it can
+    (``_all_to_all``), as DTensor does over NCCL (over a CPU group it
+    gathers the whole and keeps a chunk); the rest by DTensor."""
+    for i, (a, b) in enumerate(zip(t.placements, placements)):
+        if isinstance(a, Shard) and isinstance(b, Shard) and a.dim != b.dim:
+            moved = _all_to_all(t, i, b.dim)
+            t = t if moved is None else moved
+    if tuple(t.placements) == tuple(placements):
+        return t
+    return t.redistribute(t.device_mesh, placements)
+
+
+def _all_to_all(t, i: int, dst: int):
+    """The DTensor t with its shard over mesh dimension i moved from its
+    tensor dimension to ``dst``, by an all-to-all over that dimension's
+    group: each rank sends the others their chunks of ``dst`` and keeps
+    the pieces of its own, in the ranks' order along the old dimension.
+    None where the move is not one all-to-all: the mesh dimension does not
+    divide both tensor dimensions, or another mesh dimension shards one of
+    them."""
+    mesh, g = t.device_mesh, t.device_mesh.size(i)
+    src = t.placements[i].dim
+    if not shard_moves(t.shape, t.placements, i, dst, mesh):
+        return None
+    pieces = torch.stack(t.to_local().chunk(g, dim=dst)).contiguous()
+    got = funcol.all_to_all_single(pieces, None, None, mesh.get_group(i))
+    if isinstance(got, funcol.AsyncCollectiveTensor):
+        got = got.wait()
+    placements = list(t.placements)
+    placements[i] = Shard(dst)
+    return _from_local(torch.cat(got.unbind(0), dim=src), mesh, placements,
+                       tuple(t.shape))
+
+
+def shard_moves(shape, placements, i: int, dst: int, mesh) -> bool:
+    """Whether ``_all_to_all`` moves the shard over mesh dimension i of a
+    tensor of ``shape`` placed so to tensor dimension ``dst``."""
+    g, src = mesh.size(i), placements[i].dim
+    return not (shape[src] % g or shape[dst] % g or any(
+        isinstance(p, Shard) and p.dim in (src, dst)
+        for j, p in enumerate(placements) if j != i))
+
+
+def local_bytes(shape, placements, mesh, itemsize: int) -> float:
+    """The bytes of one rank's shard of a tensor of global ``shape`` under
+    ``placements`` (a ``Partial`` or replicated dimension whole)."""
+    n = math.prod(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n /= mesh.size(i)
+        # a shard's remainder is ignored: this is an estimate of bytes
+    return n * itemsize
+
+
+def gather_bytes(shape, placements, mesh, itemsize: int,
+                 dims=None) -> float:
+    """The bytes a rank receives where a tensor of global ``shape`` under
+    ``placements`` is made whole over the mesh dimensions ``dims`` (all of
+    them by default), one after another, by the counter's accounting
+    (``core/hlo_analysis.py``: an all-gather over g ranks receives
+    (g - 1) / g of what it returns)."""
+    pl, n = list(placements), 0.0
+    for i in range(mesh.ndim) if dims is None else dims:
+        g = mesh.size(i)
+        pl[i] = Replicate()
+        n += local_bytes(shape, pl, mesh, itemsize) * ((g - 1) / g)
+    return n
+
+
+def move_bytes(shape, placements, i: int, dst, mesh, itemsize: int) -> float:
+    """The bytes a rank receives where the shard over mesh dimension i of a
+    tensor of global ``shape`` under ``placements`` moves to tensor
+    dimension ``dst``: one all-to-all of its shard where ``_all_to_all``
+    makes it, else (or with ``dst`` None) the gather of the whole there."""
+    if dst is not None and shard_moves(shape, placements, i, dst, mesh):
+        g = mesh.size(i)
+        return local_bytes(shape, placements, mesh, itemsize) * ((g - 1) / g)
+    return gather_bytes(shape, placements, mesh, itemsize, (i,))
+
+
+def moves_activation(moved: float, gather: float) -> bool:
+    """The one rule of the serving routes that keep a weight's shard and
+    move an activation in its place: ``_move_activations`` (products),
+    ``_lookup_columns`` (the embedding lookup),
+    ``models/moe.py::_experts_on_shards`` (the experts) and
+    ``models/mamba2.py::_projects_first`` (the Mamba2 in-projection).
+    Each costs, per mesh dimension, the bytes its moves receive
+    (``gather_bytes``, ``move_bytes``) against the weight's gather, as
+    GSPMD weighs its options for the reference (a decode step's activation
+    is one token a row; a weight is whole layers), and takes the move where
+    it receives fewer bytes.
+
+    No step that takes a gradient comes here: the moved routes run on local
+    tensors (``local_map``, an autograd Function's forward) with no
+    gradient placements derived for the weight's kept shard, whose
+    gradient would be a partial sum over the moved dimension; a training
+    step keeps the gather, whose backward reduce-scatters the weight's
+    gradient to its shard (``product_on_shards``)."""
+    return moved < gather
+
+
+def _move_activations(x, w, contract, x_pl, w_pl, out_pl) -> None:
+    """Where a product that takes no gradient (serving) would gather a
+    weight's shard over a mesh dimension, move the activation there
+    instead when that moves fewer bytes (``moves_activation``). Per such
+    mesh dimension:
+
+      * x replicated, w sharded on a contracted dimension: x takes the
+        same shard of that dimension (a local slice) and the product is a
+        partial sum, all-reduced;
+      * x's rows sharded, w sharded on a contracted dimension: x's shard
+        moves from its rows to that dimension and the partial product is
+        reduce-scattered back to the rows;
+      * x's rows sharded, w sharded on an output dimension: x's rows are
+        gathered, the product keeps w's shard of its output, and that
+        shard moves back to the rows.
+
+    The caller's placements of the product stay as they were
+    (``product_on_shards`` moves it back to them). Updates the placement
+    lists in place."""
+    mesh = x.device_mesh
+    lead = x.ndim - contract
+    out_shape = (*x.shape[:lead], *w.shape[contract:])
+    isz, wsz = x.element_size(), w.element_size()
+    for i, (a, b) in enumerate(zip(x.placements, w.placements)):
+        if mesh.size(i) == 1 or not isinstance(b, Shard) \
+                or w_pl[i] != Replicate() \
+                or not (a == Replicate() or (isinstance(a, Shard)
+                                             and a.dim < lead)):
+            continue
+        gather = gather_bytes(w.shape, w_pl, mesh, wsz, (i,))
+        whole_out = gather_bytes(out_shape, out_pl, mesh, isz, (i,))
+        if b.dim < contract and a == Replicate():   # slice; all-reduce
+            new_x, new_out = Shard(lead + b.dim), Partial()
+            moved = 2 * whole_out
+        elif b.dim < contract:                      # move; reduce-scatter
+            new_x, new_out = Shard(lead + b.dim), Partial()
+            moved = move_bytes(x.shape, x_pl, i, lead + b.dim, mesh,
+                               isz) + whole_out
+        elif isinstance(a, Shard):                  # gather rows; move back
+            new_x = Replicate()
+            new_out = Shard(lead + b.dim - contract)
+            out_at = out_pl[:i] + [new_out] + out_pl[i + 1:]
+            moved = gather_bytes(x.shape, x_pl, mesh, isz, (i,)) + \
+                move_bytes(out_shape, out_at, i, a.dim, mesh, isz)
+        else:                                       # case 3 keeps w's shard
+            continue
+        if moves_activation(moved, gather):
+            x_pl[i], w_pl[i], out_pl[i] = new_x, b, new_out
 
 
 def _regathering(fn, w, w_pl):
@@ -244,7 +432,8 @@ def embedding_rows(table, tokens):
     the whole table or another rank's rows (fault F8)."""
     if not isinstance(table, DTensor):
         return table[tokens.long()]
-    return _Rows.apply(table, on_mesh(tokens, table.device_mesh))
+    return _Rows.apply(table, on_mesh(tokens, table.device_mesh),
+                       not takes_grad(table))
 
 
 class _Rows(torch.autograd.Function):
@@ -261,10 +450,16 @@ class _Rows(torch.autograd.Function):
     the tokens: the table's gradient, its vocabulary sharded as the
     table's, partial where the rows' gradient was (as DTensor's own
     gradients are; torch 2.11 cannot redistribute a table's shard into a
-    partial sum, so no redistribution of the table sits in the graph)."""
+    partial sum, so no redistribution of the table sits in the graph).
+
+    Where no gradient is taken (``serving``), a mesh dimension that
+    shards the table's columns keeps them when gathering the tokens there
+    and moving the looked-up columns back to the tokens' rows moves fewer
+    bytes than gathering the table (a decode step's few tokens against a
+    whole vocabulary; ``_lookup_columns``)."""
 
     @staticmethod
-    def forward(ctx, table, tokens):
+    def forward(ctx, table, tokens, serving=False):
         mesh = table.device_mesh
         tok_pl = [Shard(b.dim % tokens.ndim) if isinstance(b, Shard)
                   else Replicate() for b in tokens.placements]
@@ -272,6 +467,9 @@ class _Rows(torch.autograd.Function):
                  for a in table.placements]
         table_pl = [Shard(0) if v else Replicate() for v in vocab]
         lookup_pl = [Replicate() if v else b for v, b in zip(vocab, tok_pl)]
+        rows_pl = [Partial() if v else b for v, b in zip(vocab, lookup_pl)]
+        if serving:
+            _lookup_columns(table, tokens, table_pl, lookup_pl, rows_pl)
         table = table.redistribute(mesh, table_pl)
         _, offset = compute_local_shape_and_global_offset(table.shape, mesh,
                                                           table_pl)
@@ -285,10 +483,10 @@ class _Rows(torch.autograd.Function):
         ctx.save_for_backward(t, inside)
         ctx.vocab, ctx.lookup = vocab, lookup_pl
         ctx.shape, ctx.global_shape = tuple(w.shape), tuple(table.shape)
-        rows = _from_local(rows, mesh, [Partial() if v else b for v, b in
-                                        zip(vocab, lookup_pl)],
+        rows = _from_local(rows, mesh, rows_pl,
                            (*tokens.shape, table.shape[1]))
-        return rows.redistribute(mesh, tok_pl)
+        return moved_to(rows, tok_pl) if serving else \
+            rows.redistribute(mesh, tok_pl)
 
     @staticmethod
     def backward(ctx, grad):
@@ -306,7 +504,30 @@ class _Rows(torch.autograd.Function):
         whole = [Replicate() if isinstance(a, Shard) and not v else p
                  for v, a, p in zip(ctx.vocab, keep, summed)]
         table = _from_local(table, mesh, summed, ctx.global_shape)
-        return table.redistribute(mesh, whole), None
+        return table.redistribute(mesh, whole), None, None
+
+
+def _lookup_columns(table, tokens, table_pl, lookup_pl, rows_pl) -> None:
+    """``_Rows``'s serving route: per mesh dimension that shards the
+    table's columns and would gather them, keep the columns where the
+    tokens' gather and the rows' move back to the tokens' placement (an
+    all-to-all where ``_all_to_all`` makes it) cost fewer bytes than the
+    table's gather (``moves_activation``). Updates the placement lists in
+    place."""
+    mesh = table.device_mesh
+    rows_shape = (*tokens.shape, table.shape[1])
+    isz = table.element_size()
+    for i, a in enumerate(table.placements):
+        if mesh.size(i) == 1 or a != Shard(1) or table_pl[i] != Replicate():
+            continue
+        gather = gather_bytes(table.shape, table_pl, mesh, isz, (i,))
+        cols = rows_pl[:i] + [Shard(len(rows_shape) - 1)] + rows_pl[i + 1:]
+        back = rows_pl[i].dim if isinstance(rows_pl[i], Shard) else None
+        moved = gather_bytes(tokens.shape, lookup_pl, mesh, 8, (i,)) + \
+            move_bytes(rows_shape, cols, i, back, mesh, isz)
+        if moves_activation(moved, gather):
+            table_pl[i], lookup_pl[i] = Shard(1), Replicate()
+            rows_pl[i] = Shard(len(rows_shape) - 1)
 
 
 def cross_entropy_on_shards(logits, labels, z_loss: float = 1e-4):
@@ -356,7 +577,7 @@ def _from_local(t, mesh, placements, shape: tuple):
                               shape=torch.Size(shape), stride=tuple(stride))
 
 
-def _all_reduce(t, op: str, groups: list):
+def all_reduced(t, op: str, groups: list):
     """``t`` reduced by ``op`` over each process group in turn (the
     functional collectives DTensor itself uses)."""
     for group in groups:
@@ -394,14 +615,14 @@ class _ShardedCE(torch.autograd.Function):
         local = labels.to_local().long() - offset[last]
         inside = (local >= 0) & (local < lf.shape[-1])
         idx = torch.where(inside, local, 0)
-        m = _all_reduce(lf.amax(-1), "max", vocab)
-        total = _all_reduce((lf - m[..., None]).exp_().sum(-1), "sum", vocab)
+        m = all_reduced(lf.amax(-1), "max", vocab)
+        total = all_reduced((lf - m[..., None]).exp_().sum(-1), "sum", vocab)
         lse = total.log_().add_(m)
-        gold = _all_reduce(torch.where(
+        gold = all_reduced(torch.where(
             inside, lf.gather(-1, idx[..., None])[..., 0], 0.0), "sum", vocab)
         n = labels.numel()
         means = torch.stack([(lse - gold).mean(), (lse ** 2).mean()])
-        means = _all_reduce(means * (lse.numel() / n), "sum", rows)
+        means = all_reduced(means * (lse.numel() / n), "sum", rows)
         ce = means[0] + z_loss * means[1] if z_loss else means[0]
         ctx.save_for_backward(x, lse, idx, inside)
         ctx.mesh, ctx.placements, ctx.n, ctx.z_loss = mesh, pl, n, z_loss

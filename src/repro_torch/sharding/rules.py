@@ -257,8 +257,10 @@ def distribute(t, mesh, placements: tuple):
     """``t``, which every rank holds whole and alike, as a DTensor on
     ``mesh`` with ``placements``: each rank keeps its own chunk
     (``local_chunk``), with no communication (``distribute_tensor`` would
-    scatter from one rank). A rank outside the mesh keeps an empty local
-    tensor."""
+    scatter from one rank), in a storage of its own: a chunk of the
+    leading dimension is a view of the whole, which would keep the whole
+    alive (and a dry-run would count it whole). A rank outside the mesh
+    keeps an empty local tensor."""
     from torch.distributed.tensor import DTensor
 
     coord = mesh.get_coordinate()
@@ -267,6 +269,9 @@ def distribute(t, mesh, placements: tuple):
     else:
         local = local_chunk(t, tuple(mesh.shape), coord,
                             placements).contiguous()
+        if local.untyped_storage().nbytes() > \
+                local.numel() * local.element_size():
+            local = local.clone()
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=t.shape, stride=t.stride())
 

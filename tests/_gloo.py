@@ -853,3 +853,19 @@ def rows_shards(rank, world, out, checks, cases: dict):
     for name, (vocab, table_pl, tokens_pl) in cases.items():
         checks(name, lambda v=vocab, a=table_pl, b=tokens_pl: rows_run(
             v, mesh, a, b))
+
+
+def pod_mesh(rank, world, out, checks, ckpts: dict, loop_kw: dict,
+             archs: tuple):
+    """Reduced archs in float64 on a (2, 1, 2) ("pod", "data", "model")
+    mesh under ``2d``: trained from the state in ``ckpts[arch]``
+    (``train_run``) and served (``serve_run``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cpu", (2, 1, 2),
+                            mesh_dim_names=("pod", "data", "model"))
+    for arch in archs:
+        cfg = mesh_config(arch, dtype="float64")
+        checks(f"train/{arch}", lambda arch=arch, cfg=cfg: train_run(
+            cfg, mesh, dict(loop_kw, strategy="2d"), ckpt=ckpts[arch]))
+        checks(f"serve/{arch}", lambda cfg=cfg: serve_run(cfg, mesh))

@@ -69,6 +69,7 @@ here: ``run_cell`` and ``run_serve_cell`` run every cell under it.
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import replace
 
 CUTS = {"xlstm-125m": dict(n_layers=4), "zamba2-2.7b": dict(n_layers=6),
@@ -136,16 +137,17 @@ def view_rule_2_11():
 @contextlib.contextmanager
 def fake_mesh(mesh_shape: tuple):
     """A ("data", "model") DeviceMesh of ``mesh_shape`` over a ``fake``
-    process group, destroyed on exit."""
+    process group, destroyed on exit; of three dimensions, a ("pod",
+    "data", "model") one, as the multi-pod production mesh."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=mesh_shape[0] * mesh_shape[1])
+                            world_size=math.prod(mesh_shape))
+    names = ("pod", "data", "model")[-len(mesh_shape):]
     try:
-        yield init_device_mesh("cpu", mesh_shape,
-                               mesh_dim_names=("data", "model"))
+        yield init_device_mesh("cpu", mesh_shape, mesh_dim_names=names)
     finally:
         dist.destroy_process_group()
 

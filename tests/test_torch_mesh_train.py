@@ -170,14 +170,15 @@ def test_attention_runs_on_head_shards(world, arch, strategy):
 
 def test_head_dim_fallback_matches_one_device(world, ckpts):
     """2 KV heads on model axis 4: the rules shard wk's head_dim, and the
-    attention core gathers the heads (all 4 q heads, both KV heads, on
-    each rank) and matches the one-device run (both in float64,
-    ``_gloo.FALLBACK`` says why)."""
+    attention core keeps q's head shard (one q head a rank) against the
+    one KV head it reads, out of K/V whole (``_core_on_shards``), and
+    matches the one-device run (both in float64, ``_gloo.FALLBACK`` says
+    why)."""
     got = result(world, "head_dim_fallback")
     # wk is (layers, embed, kv_heads, head_dim): head_dim over model (embed
     # over a data axis of 1 is replicated)
     assert got["wk"] == (Replicate(), Shard(3))
-    assert got["attn_shapes"] == [((2, 16, 4, 16), (2, 16, 2, 16))]
+    assert got["attn_shapes"] == [((2, 16, 1, 16), (2, 16, 1, 16))]
     cfg = mesh_config("smollm-360m", **FALLBACK)
     _hold_to(got, train_run(cfg, None, dict(LOOP), ckpt=ckpts["fallback"]),
              "head_dim fallback")

@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
-"""The counted live-bytes peak a rank of ``train_4k`` cells on a fake mesh,
-and what is live at it: each cell's step (``launch/cells.py``, the
+"""The counted live-bytes peak a rank of dry-run cells on a fake mesh, and
+what is live at it: each cell's step (``launch/cells.py``, the
 ``core/autotune.py::strategy_costs`` run the dry-run counts) on meta
 tensors over a ``fake`` process group, under torch 2.11's DTensor view rule
 (``tests/_mesh_cells.py::view_rule_2_11``), on the host's CPU.
 
-    python3 tools/mesh_peaks.py [--mesh 16x16] [--strategy 2d] [--tally N]
-        [--sites N] smollm-360m:4 qwen2.5-14b:6 zamba2-2.7b:6
+    python3 tools/mesh_peaks.py [--mesh 16x16 | --multipod] [--shape S]
+        [--strategy 2d] [--tally N] [--sites N]
+        smollm-360m:4 qwen2.5-14b:6 zamba2-2.7b:6
+
+``--shape`` names the cell's input shape: ``train_4k`` (the default, a
+train step), ``prefill_32k`` (a prefill), ``decode_32k`` or ``long_500k``
+(a decode step). ``--multipod`` counts on the multi-pod mesh, (2, 16, 16)
+("pod", "data", "model"), in place of ``--mesh``.
 
 Each ARCH:LAYERS cell (the arch's config with its depth cut to LAYERS;
 ARCH alone keeps the whole depth) prints one JSON line: the torch version,
@@ -58,7 +64,8 @@ def _site() -> tuple:
 
 
 def count_cell(arch: str, layers: int | None, mesh_shape: tuple,
-               strategy: str, tally: int, sites: int = 0) -> dict:
+               strategy: str, tally: int, sites: int = 0,
+               shape: str = "train_4k") -> dict:
     import torch
 
     from _mesh_cells import fake_mesh, view_rule_2_11
@@ -104,11 +111,12 @@ def count_cell(arch: str, layers: int | None, mesh_shape: tuple,
         if tally:
             counter.track = tracking
         with fake_mesh(mesh_shape) as mesh, view_rule_2_11():
-            run = strategy_costs(build_model(cfg), SHAPES["train_4k"], mesh,
+            run = strategy_costs(build_model(cfg), SHAPES[shape], mesh,
                                  strategy)
     finally:
         counter._count, counter.track = count, track
     out = {"arch": arch, "layers": cfg.n_layers, "mesh": list(mesh_shape),
+           **({} if shape == "train_4k" else {"shape": shape}),
            "strategy": strategy, "torch": torch.__version__,
            "peak_bytes": run.peak_bytes, "peak_gib": run.peak_bytes / 2 ** 30,
            "flops": run.costs.flops, "bytes": run.costs.hbm_bytes,
@@ -130,20 +138,26 @@ def count_cell(arch: str, layers: int | None, mesh_shape: tuple,
 
 def main() -> int:
     ap = argparse.ArgumentParser(
-        description="Counted peaks of train_4k cells on a fake mesh.")
+        description="Counted peaks of dry-run cells on a fake mesh.")
     ap.add_argument("cells", nargs="+", help="ARCH or ARCH:LAYERS")
     ap.add_argument("--mesh", default="16x16")
+    ap.add_argument("--multipod", action="store_true",
+                    help="the (2, 16, 16) pod mesh, in place of --mesh")
+    ap.add_argument("--shape", default="train_4k",
+                    choices=("train_4k", "prefill_32k", "decode_32k",
+                             "long_500k"))
     ap.add_argument("--strategy", default="2d")
     ap.add_argument("--tally", type=int, default=0)
     ap.add_argument("--sites", type=int, default=0)
     args = ap.parse_args()
     sys.path[:0] = [str(REPO / "src"), str(REPO / "tests")]
-    mesh_shape = tuple(int(s) for s in args.mesh.split("x"))
+    mesh_shape = (2, 16, 16) if args.multipod else \
+        tuple(int(s) for s in args.mesh.split("x"))
     for cell in args.cells:
         arch, _, layers = cell.partition(":")
         print(json.dumps(count_cell(arch, int(layers) if layers else None,
                                     mesh_shape, args.strategy, args.tally,
-                                    args.sites)),
+                                    args.sites, args.shape)),
               flush=True)
     return 0
 
