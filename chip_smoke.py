@@ -191,7 +191,10 @@ Phases, one JSON line each:
                one group of 4; whisper 2 + 2): one prefill and 8 greedy
                steps through generate(), no kernel launch; one training step
                with B2 launches asserted (none for xlstm) and every B2 call
-               held in place; logits and losses finite
+               held in place; logits and losses finite; xlstm-125m's
+               prefill ms and training step s printed beside the parent
+               commit's (XLSTM_PARENT: its recurrences stepped in Python
+               loops, where they now run as scans)
   lm_families_mesh  the same four trained on the 1 x 1 NCCL mesh:
                whisper-medium and xlstm-125m whole through
                ``launch.train.main``, granite-moe-3b-a800m and qwen2-vl-7b
@@ -241,7 +244,13 @@ Phases, one JSON line each:
                held under 1.25x the reference's count of the same cell
                (written here: this host has no JAX); and ``POD_CELLS``,
                every family's cut ``train_4k`` step on a fake (2, 2, 2)
-               ("pod", "data", "model") mesh under 2d
+               ("pod", "data", "model") mesh under 2d; after the peak
+               cells, the ``XLSTM_CELL`` (faults F27, F28): xlstm-125m's ``train_4k``
+               step cut to one group of 4 layers on a fake (16, 16) mesh,
+               its peak a rank counted and held under 1.15x the
+               reference's count of the same cell, and its one-device
+               step traced for the 12 features, which must hold ``scan``
+               nodes (the recurrences unrolled took hours) and be finite
   context_parallel_host  the context-parallel attention on 4 gloo ranks
                of the host under the host's torch (tests/_gloo.py's
                ``context_parallel`` world: reduced smollm-360m with 3 / 1
@@ -488,6 +497,22 @@ POD_CELLS = tuple((a, (2, 2, 2), "2d") for a in (
     "zamba2-2.7b", "mistral-large-123b", "qwen1.5-110b", "smollm-360m",
     "qwen2.5-14b", "whisper-medium", "olmoe-1b-7b", "granite-moe-3b-a800m",
     "qwen2-vl-7b", "xlstm-125m"))
+# faults F27 and F28 (ROADMAP section 3): xlstm-125m's train_4k step cut to
+# one group of 4 layers, on a fake (16, 16) mesh under 2d, as
+# tests/test_torch_dryrun_xlstm.py counts it: (layers, the bound on its peak
+# a rank, 1.15x the reference's peak_bytes_tpu of the same cell, lowered
+# and compiled by the reference's launch/cells.py on 256 host devices and
+# counted by its launch/roofline.py::analyze_cell under JAX 0.9.0 on a CPU
+# host: 2,347,162,448 bytes)
+XLSTM_CELL = (4, 1.15 * 2347162448)
+# xlstm-125m in lm_families on the parent commit of the recurrences' scans
+# (3afd41c, its loops stepped in Python), measured by ``python3
+# tools/mesh_ab.py --root DIR --families`` on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (torch 2.11.0+cu128), two runs of the parent beside two of the
+# change in one call: the median of its warm prefills of 2 x 256 tokens
+# (``xlstm_times``' second to fourth) in ms, and of its lm_families
+# training step in seconds
+XLSTM_PARENT = {"prefill_ms": 86.32, "train_s": 2.5635}
 MESH_CELL_WORKERS = 4
 MESH_CELL_NICE = 19          # below the dry-run and the timed phases
 MESH_CELLS_TIMEOUT_S = 1000
@@ -2001,6 +2026,11 @@ def lm_families_phase(dev, smi: str) -> dict:
             raise AssertionError(f"{arch}: {served} launches serving, tokens "
                                  f"{tuple(tokens.shape)}")
         serve_s = time.perf_counter() - t_arch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
 
         per_step = train_launches_per_step(cfg)
         mb_batch, seq = FAMILY_TRAIN[arch]
@@ -2041,7 +2071,7 @@ def lm_families_phase(dev, smi: str) -> dict:
             "prompt": FAMILY_PROMPT, "generated": FAMILY_GEN,
             "tokens_head": tokens[0, :4].tolist(),
             "decode_ms_median": float(np.median(times)) * 1e3,
-            "serve_s": serve_s, "train_batch": mb_batch * cfg.microbatches,
+            "prefill_ms": prefill_ms, "serve_s": serve_s, "train_batch": mb_batch * cfg.microbatches,
             "train_seq": seq, "microbatches": cfg.microbatches,
             "loss": loss, "train_s": train_s,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2049,8 +2079,11 @@ def lm_families_phase(dev, smi: str) -> dict:
             "seconds": time.perf_counter() - t_arch}
         del model, params, state, step, train_batch, batch, metrics
         torch.cuda.empty_cache()
+    xl = results["xlstm-125m"]
     emit("lm_families", families=results, call_limit=limit,
-         seconds=sum(r["seconds"] for r in results.values()), card=smi)
+         seconds=sum(r["seconds"] for r in results.values()),
+         xlstm={"prefill_ms": xl["prefill_ms"], "train_s": xl["train_s"],
+                "parent": XLSTM_PARENT}, card=smi)
     return {"launches": total, "results": results}
 
 
@@ -3372,6 +3405,8 @@ def mesh_cell(cell: tuple) -> dict:
     try:
         if strategy == "peak":
             out.update(strategy="2d", **peak_cell(arch))
+        elif strategy == "xlstm":
+            out.update(strategy="2d", **xlstm_cell())
         elif strategy == "cause":
             out.update(strategy="2d", **cause_cell(arch))
         else:
@@ -3413,6 +3448,50 @@ def peak_cell(arch: str) -> dict:
     return out
 
 
+def xlstm_cell() -> dict:
+    """The XLSTM_CELL counted in this worker, as peak_cell counts its cells:
+    its peak a rank beside its bound; then its one-device step traced
+    (``core/features.py::trace_graph``) and its 12 features extracted, as
+    the dry-run records them; the count of ``scan`` nodes in the trace."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from _mesh_cells import fake_mesh, view_rule_2_11
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.core.autotune import strategy_costs
+    from repro_torch.core.features import (LaunchConfig, extract_from_graph,
+                                           trace_graph)
+    from repro_torch.launch.cells import cell_fns
+
+    from repro_torch.models.registry import build_model
+
+    layers, most = XLSTM_CELL
+    shape = SHAPES["train_4k"]
+    model = build_model(replace(ARCHS["xlstm-125m"], n_layers=layers))
+    with fake_mesh((16, 16)) as mesh, view_rule_2_11():
+        t0 = time.perf_counter()
+        run = strategy_costs(model, shape, mesh, "2d")
+        t1 = time.perf_counter()
+        fn, args, _, _, _ = cell_fns(model, shape, "2d", mesh)
+        graph = trace_graph(fn, *args)
+        t2 = time.perf_counter()
+    fv = extract_from_graph(graph, LaunchConfig(
+        work_items=float(shape.tokens), n_shards=256))
+    scans = sum(n.target is torch.ops.higher_order.scan
+                for n in graph.graph.nodes)
+    out = {"layers": layers, "peak_bytes": run.peak_bytes, "peak_max": most,
+           "count_s": t1 - t0, "trace_s": t2 - t1, "scans": scans,
+           "features": fv.as_dict(),
+           "ok": (run.peak_bytes <= most and scans > 0
+                  and bool(np.isfinite(fv.values).all()))}
+    if not out["ok"]:
+        out["error"] = (f"counts {run.peak_bytes} bytes a rank, bound "
+                        f"{most}; {scans} scan nodes in the trace; features "
+                        f"{fv.as_dict()}")
+    return out
+
+
 def cause_cell(name: str) -> dict:
     """One of CAUSE_CELLS counted in this worker: the serving cell on meta
     tensors over a fake process group of its mesh under 2d, by
@@ -3451,6 +3530,7 @@ def mesh_cells_host():
                                                      maxtasksperchild=1)
     try:
         cells = ([(a, (16, 16), "peak") for a in PEAK_CELLS]
+                 + [("xlstm-125m", (16, 16), "xlstm")]
                  + [(c, (), "cause") for c in CAUSE_CELLS]
                  + list(POD_CELLS) + list(F6_CELLS))
         yield pool.map_async(mesh_cell, cells, chunksize=1), time.time()
@@ -3472,7 +3552,8 @@ def mesh_cells_host_phase(started: tuple, smi: str) -> dict:
     out = {"torch": torch.__version__, "cells": [
         {k: c[k] for k in ("arch", "cell", "mesh", "strategy", "ok",
                            "seconds", "layers", "peak_bytes", "peak_max",
-                           "collective_bytes", "reference_bytes", "ratio")
+                           "collective_bytes", "reference_bytes", "ratio",
+                           "count_s", "trace_s", "scans", "features")
          if k in c}
         for c in cells], "ok": sum(c["ok"] for c in cells),
         "of": len(cells), "seconds": max(c["done_at"] for c in cells) - t0,

@@ -48,8 +48,19 @@ What cannot mean the same thing in torch:
   * **Eager bytes, not post-fusion bytes.** Every intermediate an eager
     program materialises is counted, where XLA's fusions keep many on
     chip.
-  * **No** ``while_trips``: an eager run has no loop to weight, every
-    layer is seen (it stays empty).
+  * **A** ``scan`` (``torch._higher_order_ops.scan``'s op: the xLSTM's
+    recurrences, ``models/xlstm.py``) is the one loop an eager run keeps:
+    the counter runs its first two trips (the second with the first's
+    carry and the stacked outputs live, as every later trip has them) and
+    counts each later trip as the second: its FLOPs, bytes,
+    transcendentals and collectives, and the library's FLOPs beside them.
+    Each trip writes its outputs into their stacked buffers once (a slice
+    copy), and the live-bytes tally holds the buffers, the carries and
+    what the body keeps. On meta tensors the later trips do not run (no
+    count or peak depends on them: the shapes repeat); on real ones they
+    run uncounted, for their values. ``FlopCounterMode`` alone (it has no
+    rule for a scan) runs every trip under itself. ``while_trips`` lists
+    each scan's trip count; the layers, unrolled, are all seen.
   * **No bf16 halving** (the reference's ``logical_bf16``, an XLA:CPU
     artefact): torch moves the dtype it holds.
   * **Activation checkpointing**: the recomputed forward runs again in the
@@ -69,6 +80,8 @@ import weakref
 from dataclasses import dataclass, field
 
 import torch
+from torch._higher_order_ops.scan import scan_op
+from torch.utils import flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -136,7 +149,7 @@ class HloCosts:
     collective_counts: dict = field(default_factory=dict)     # op -> count
     collective_bytes_by_op: dict = field(default_factory=dict)
     transcendentals: float = 0.0
-    while_trips: list[float] = field(default_factory=list)   # always empty
+    while_trips: list[float] = field(default_factory=list)   # each scan's
 
     def as_dict(self) -> dict:
         return dict(flops=self.flops, hbm_bytes=self.hbm_bytes,
@@ -226,6 +239,7 @@ class CostCounter(TorchDispatchMode):
         self.peak_bytes = 0
         self._live: dict = {}            # storage key -> (bytes, weakref)
         self._kernel_flops_only = False
+        self._in_scan = 0                # scans being counted
         self._closed = False
 
     # ------------------------------------------------------ live storages
@@ -272,6 +286,13 @@ class CostCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented       # DTensor runs (and we count) the
                                         # local ops
+        if self._in_scan:
+            # a scan's body runs below autograd, where composite ops
+            # (matmul, einsum) come whole: count what they decompose to
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
         out = func(*args, **kwargs)
         if isinstance(func, torch._ops.OpOverload) and not _is_fake(out) \
                 and not _is_fake(args):
@@ -326,6 +347,104 @@ class CostCounter(TorchDispatchMode):
         self.costs.hbm_bytes += float(sum(map(_nbytes, tensors))
                                       + sum(map(_nbytes, _tensors(output))))
         return None
+
+
+def _costs_snapshot(c: HloCosts) -> tuple:
+    return (c.flops, c.hbm_bytes, c.transcendentals, c.collective_bytes,
+            dict(c.collective_counts), dict(c.collective_bytes_by_op))
+
+
+def _add_trips(c: HloCosts, before: tuple, k: int) -> None:
+    """Add ``k`` more times what ``c`` counted since ``before``."""
+    flops, hbm, tr, coll, counts, by_op = before
+    c.flops += k * (c.flops - flops)
+    c.hbm_bytes += k * (c.hbm_bytes - hbm)
+    c.transcendentals += k * (c.transcendentals - tr)
+    c.collective_bytes += k * (c.collective_bytes - coll)
+    for now, was in ((c.collective_counts, counts),
+                     (c.collective_bytes_by_op, by_op)):
+        for op, v in list(now.items()):
+            now[op] = v + k * (v - was.get(op, 0))
+
+
+# FlopCounterMode's dispatch mode (torch has no rule of its own for a scan)
+_LIBRARY_MODE = getattr(flop_counter, "_FlopCounterMode", None)
+
+
+def _library_below():
+    """The ``FlopCounterMode`` whose dispatch mode is on the stack, if
+    one is."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        if _LIBRARY_MODE is not None and isinstance(mode, _LIBRARY_MODE):
+            return mode.counter
+    return None
+
+
+if _LIBRARY_MODE is not None:
+    @scan_op.py_impl(_LIBRARY_MODE)
+    def _library_scan(mode, body, init, xs, extra):
+        """``scan_op`` under ``FlopCounterMode`` alone (or in the trips the
+        cost counter runs uncounted): every trip runs under it."""
+        n, carry, ys = len(init), list(init), []
+        with mode:
+            for i in range(xs[0].shape[0]):
+                out = body(*carry, *(x.select(0, i) for x in xs), *extra)
+                carry = out[:n]
+                ys.append(out[n:])
+            return (*carry, *(torch.stack(y) for y in zip(*ys)))
+
+
+@scan_op.py_impl(CostCounter)
+def _count_scan(counter, body, init, xs, extra):
+    """``scan_op`` under the counter (the module docstring says how a scan
+    is counted). The counter is off the mode stack here; it counts the
+    trips it runs under itself."""
+    trips = xs[0].shape[0]
+    n_carry = len(init)
+    counter.costs.while_trips.append(float(trips))
+
+    def trip(carry, i):
+        counter._in_scan += 1
+        try:
+            out = body(*carry, *(x.select(0, i) for x in xs), *extra)
+        finally:
+            counter._in_scan -= 1
+        return list(out[:n_carry]), list(out[n_carry:])
+
+    def store(bufs, ys, i):
+        for buf, y in zip(bufs, ys):
+            buf.select(0, i).copy_(y)
+
+    with counter:
+        carry, ys = trip(list(init), 0)
+        bufs = [y.new_empty((trips, *y.shape)) for y in ys]
+        store(bufs, ys, 0)
+    del ys
+    if trips > 1:
+        library = _library_below()
+        before = _costs_snapshot(counter.costs)
+        flops_before = library and {k: dict(v) for k, v in
+                                    library.flop_counts.items()}
+        with counter:
+            carry, ys = trip(carry, 1)
+            store(bufs, ys, 1)
+        del ys
+        _add_trips(counter.costs, before, trips - 2)
+        meta = all(t.device.type == "meta" for t in _tensors(
+            (init, xs, extra)))
+        if meta and library is not None:
+            for mod, counts in list(library.flop_counts.items()):
+                was = flops_before.get(mod, {})
+                for op, v in list(counts.items()):
+                    counts[op] = v + (trips - 2) * (v - was.get(op, 0))
+        elif not meta:
+            for i in range(2, trips):
+                carry, ys = trip(carry, i)
+                store(bufs, ys, i)
+            counter.track(carry)
+    return (*carry, *bufs)
 
 
 @dataclass

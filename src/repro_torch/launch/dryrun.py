@@ -27,9 +27,12 @@ seconds and ``compile_s`` 0.0: nothing compiles. A full-attention arch's
 ``long_500k`` cell is written ``skipped``, as the reference writes it.
 
 A cell runs every layer op by op on the meta device (some 100-200 us an
-op), so its time grows with depth and, for the xLSTM's loops, with the
-sequence: smollm-360m's ``train_4k`` takes a minute or two on a host CPU,
-an xLSTM prefill of 32,768 tokens far longer.
+op), so its time grows with depth: smollm-360m's ``train_4k`` takes a
+minute or two on a host CPU. The xLSTM's recurrences are scans
+(``models/xlstm.py``): the counter runs two trips of each and counts the
+rest as the second (``core/hlo_analysis.py``), and the trace keeps each as
+one ``scan`` node, so neither grows with the sequence (xlstm-125m's
+``train_4k``, counted and traced, some 40 s).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k
@@ -48,8 +51,7 @@ ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 
 
 def dry_run(model, shape, mesh, *, mesh_name: str, strategy: str = "2d",
-            tag: str | None = None, extract_features: bool = True,
-            graphs: dict | None = None) -> dict:
+            tag: str | None = None, graphs: dict | None = None) -> dict:
     """The record of ``model``'s ``shape`` cell on ``mesh`` under
     ``strategy`` (steps 1-4 of the module docstring), for any mesh and
     any process group. The features are
@@ -76,24 +78,21 @@ def dry_run(model, shape, mesh, *, mesh_name: str, strategy: str = "2d",
                        strategy=strategy, cfg=cfg)
     rec = {"tag": tag, "status": "ok", "lower_s": run.seconds,
            "compile_s": 0.0, "report": asdict(rep)}
-    if extract_features:
-        graphs = {} if graphs is None else graphs
-        key = n_microbatches(cfg, shape, mesh) if shape.kind == "train" \
-            else None
-        if key not in graphs:
-            fn, args, _, _, _ = cell_fns(model, shape, "2d", mesh)
-            graphs[key] = trace_graph(fn, *args)
-        launch = LaunchConfig(work_items=float(shape.tokens), n_shards=n_dev)
-        fv = extract_from_graph(graphs[key], launch)
-        rec["features"] = fv.as_dict()
-        rec["feature_aux"] = {k: float(v) for k, v in fv.aux.items()}
+    graphs = {} if graphs is None else graphs
+    key = n_microbatches(cfg, shape, mesh) if shape.kind == "train" else None
+    if key not in graphs:
+        fn, args, _, _, _ = cell_fns(model, shape, "2d", mesh)
+        graphs[key] = trace_graph(fn, *args)
+    launch = LaunchConfig(work_items=float(shape.tokens), n_shards=n_dev)
+    fv = extract_from_graph(graphs[key], launch)
+    rec["features"] = fv.as_dict()
+    rec["feature_aux"] = {k: float(v) for k, v in fv.aux.items()}
     return rec
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              strategy: str = "2d", verbose: bool = True,
-             save: bool = True, extract_features: bool = True,
-             graphs: dict | None = None) -> dict:
+             save: bool = True, graphs: dict | None = None) -> dict:
     """One production cell on a fake process group of 256 or 512 ranks
     (started here and destroyed after); ``graphs`` as ``dry_run``'s."""
     import torch.distributed as dist
@@ -125,8 +124,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     try:
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         rec = dry_run(build_model(cfg), shape, mesh, mesh_name=mesh_name,
-                      strategy=strategy, tag=tag,
-                      extract_features=extract_features, graphs=graphs)
+                      strategy=strategy, tag=tag, graphs=graphs)
     finally:
         dist.destroy_process_group()
     if verbose:
