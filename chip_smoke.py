@@ -250,7 +250,13 @@ Phases, one JSON line each:
                its peak a rank counted and held under 1.15x the
                reference's count of the same cell, and its one-device
                step traced for the 12 features, which must hold ``scan``
-               nodes (the recurrences unrolled took hours) and be finite
+               nodes (the recurrences unrolled took hours) and be finite;
+               before it the nine ``CUT_CELLS`` (faults F24, F26): a
+               ``prefill_32k`` cell of each cause the tally named, cut in
+               depth, on fake (16, 16) and (2, 16, 16) meshes, and
+               smollm-360m's whole ``train_4k`` on (2, 16, 16), each peak
+               a rank held within 1.15x the reference's count of the same
+               cell
   context_parallel_host  the context-parallel attention on 4 gloo ranks
                of the host under the host's torch (tests/_gloo.py's
                ``context_parallel`` world: reduced smollm-360m with 3 / 1
@@ -505,6 +511,30 @@ POD_CELLS = tuple((a, (2, 2, 2), "2d") for a in (
 # counted by its launch/roofline.py::analyze_cell under JAX 0.9.0 on a CPU
 # host: 2,347,162,448 bytes)
 XLSTM_CELL = (4, 1.15 * 2347162448)
+# faults F24 and F26 (ROADMAP section 3): tests/test_torch_dryrun_prefill.py's
+# cells, one of each cause the tally named, cut in depth at full width and
+# length, on a fake mesh under 2d: (arch, layers, shape, mesh, the
+# reference's peak_bytes_tpu a device of the same cell, lowered and
+# compiled by the reference's launch/cells.py on 512 host devices and
+# counted by its launch/roofline.py::analyze_cell under JAX 0.9.0 on a CPU
+# host); each peak a rank is held within PEAK_LIMIT of it
+CUT_CELLS = {
+    "caches-16x16": ("qwen1.5-110b", 2, "prefill_32k", (16, 16), 8282343800),
+    "caches-2x16x16": ("qwen1.5-110b", 2, "prefill_32k", (2, 16, 16),
+                       4489518776),
+    "norms-16x16": ("zamba2-2.7b", 6, "prefill_32k", (16, 16), 2438930468),
+    "norms-2x16x16": ("zamba2-2.7b", 6, "prefill_32k", (2, 16, 16),
+                      1242915428),
+    "merge-16x16": ("smollm-360m", 2, "prefill_32k", (16, 16), 798034552),
+    "merge-2x16x16": ("smollm-360m", 2, "prefill_32k", (2, 16, 16),
+                      425433464),
+    "dispatch-16x16": ("olmoe-1b-7b", 1, "prefill_32k", (16, 16),
+                       11490282360),
+    "dispatch-2x16x16": ("olmoe-1b-7b", 1, "prefill_32k", (2, 16, 16),
+                         11200484072),
+    "f26-2x16x16": ("smollm-360m", 32, "train_4k", (2, 16, 16), 961120016),
+}
+PEAK_LIMIT = 1.15
 # xlstm-125m in lm_families on the parent commit of the recurrences' scans
 # (3afd41c, its loops stepped in Python), measured by ``python3
 # tools/mesh_ab.py --root DIR --families`` on an NVIDIA H100 80GB HBM3 at
@@ -3409,6 +3439,8 @@ def mesh_cell(cell: tuple) -> dict:
             out.update(strategy="2d", **xlstm_cell())
         elif strategy == "cause":
             out.update(strategy="2d", **cause_cell(arch))
+        elif strategy == "cut":
+            out.update(strategy="2d", **cut_cell(arch))
         else:
             got = run_cell(arch, mesh_shape, strategy)
             out["ok"] = (got["loss_shape"] == () and got["placements"]
@@ -3492,6 +3524,30 @@ def xlstm_cell() -> dict:
     return out
 
 
+def cut_cell(name: str) -> dict:
+    """One of CUT_CELLS counted in this worker, as peak_cell counts its
+    cells: its peak a rank beside PEAK_LIMIT times the reference's."""
+    from dataclasses import replace
+
+    from _mesh_cells import fake_mesh, view_rule_2_11
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.core.autotune import strategy_costs
+    from repro_torch.models.registry import build_model
+
+    arch, layers, shape, mesh_shape, ref = CUT_CELLS[name]
+    model = build_model(replace(ARCHS[arch], n_layers=layers))
+    with fake_mesh(mesh_shape) as mesh, view_rule_2_11():
+        run = strategy_costs(model, SHAPES[shape], mesh, "2d")
+    most = PEAK_LIMIT * ref
+    out = {"cell": f"{arch}:{layers} {shape}",
+           "mesh": "x".join(map(str, mesh_shape)), "layers": layers,
+           "peak_bytes": run.peak_bytes, "peak_max": most,
+           "ratio": run.peak_bytes / ref, "ok": 0 < run.peak_bytes <= most}
+    if not out["ok"]:
+        out["error"] = f"counts {run.peak_bytes} bytes a rank, bound {most}"
+    return out
+
+
 def cause_cell(name: str) -> dict:
     """One of CAUSE_CELLS counted in this worker: the serving cell on meta
     tensors over a fake process group of its mesh under 2d, by
@@ -3530,6 +3586,7 @@ def mesh_cells_host():
                                                      maxtasksperchild=1)
     try:
         cells = ([(a, (16, 16), "peak") for a in PEAK_CELLS]
+                 + [(c, (), "cut") for c in CUT_CELLS]
                  + [("xlstm-125m", (16, 16), "xlstm")]
                  + [(c, (), "cause") for c in CAUSE_CELLS]
                  + list(POD_CELLS) + list(F6_CELLS))

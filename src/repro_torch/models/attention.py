@@ -40,7 +40,7 @@ from ..sharding.context import (all_reduced, constrain, current_ctx,
                                 on_mesh, product_on_shards, reduced,
                                 takes_grad)
 from .common import (EMBED, HEAD_DIM, HEADS, KV_HEADS, ParamSpec, apply_rope,
-                     f32, remat)
+                     f32, remat, row_chunk)
 
 
 def attn_specs(cfg) -> dict:
@@ -106,6 +106,7 @@ def _out(o, wo):
 
 Q_CHUNK = 512   # query-chunked attention: caps the f32 score buffer at
                 # (B, Hkv, g, Q_CHUNK, Skv) instead of the full S^2
+LEAN_CHUNK = 128    # the same on a rank's shards without a gradient
 
 
 def _sdpa_block(qg, k, v, *, causal: bool, q_offset: int, kv_valid_len,
@@ -127,31 +128,41 @@ def _sdpa_block(qg, k, v, *, causal: bool, q_offset: int, kv_valid_len,
         valid = keep if valid is None else valid & keep
     if valid is not None:
         s = torch.where(valid, s, -1e30)
+    lse = torch.logsumexp(s, dim=-1) if return_lse else None
+    # each buffer dropped once used: the chunk's float32 scores, then its
+    # probabilities, are not kept beside what is made of them
     pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", f32(pr.to(v.dtype)), f32(v))
+    del s
+    pr = f32(pr.to(v.dtype))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", pr, f32(v))
     if not return_lse:
         return o
-    lse = torch.logsumexp(s, dim=-1)
     if valid is not None:                    # rows that see no key
         lse = torch.where(valid.any(-1), lse, -math.inf)
     return o, lse.permute(0, 3, 1, 2)
 
 
 def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_valid_len=None,
-          return_lse: bool = False):
+          return_lse: bool = False, lean: bool = False):
     """q (B,Sq,H,Dh); k/v (B,Skv,Hkv,Dh). Grouped attention; queries
     processed in chunks of Q_CHUNK (exact: softmax is per query over the
     full key range) so the score buffer never holds S^2, each chunk
     checkpointed where a gradient is taken. Query row r sees
     the keys c <= r + q_offset (causal) and c < kv_valid_len. With
     ``return_lse``, (o, lse): lse (B,Sq,H) float32, each row's log-sum-exp
-    of its scaled scores, -inf where it sees no key."""
+    of its scaled scores, -inf where it sees no key. ``lean`` (a rank's
+    shards on a mesh, where no gradient is taken: ``_sdpa_lean``) holds
+    less of the same work at once."""
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
     # the reference's f32 scale: 1/sqrt(Dh) rounded to float32
     scale = float(torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32))
     qg = q.reshape(B, Sq, Hkv, g, Dh).to(k.dtype)
+    block = partial(_sdpa_block, causal=causal, kv_valid_len=kv_valid_len,
+                    scale=scale, return_lse=return_lse)
+    if lean and not takes_grad(q, k, v):
+        return _sdpa_lean(block, q, qg, k, v, q_offset, return_lse)
     starts = ([0] if Sq <= Q_CHUNK or Sq % Q_CHUNK != 0
               else range(0, Sq, Q_CHUNK))
     qc = Sq if len(starts) == 1 else Q_CHUNK
@@ -161,16 +172,35 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_valid_len=None,
     # every chunk's
     ckpt = len(starts) > 1 and torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
-    parts = [remat(ckpt, partial(_sdpa_block, causal=causal,
-                                 q_offset=q_offset + i,
-                                 kv_valid_len=kv_valid_len, scale=scale,
-                                 return_lse=return_lse),
+    parts = [remat(ckpt, partial(block, q_offset=q_offset + i),
                    qg[:, i:i + qc], k, v)
              for i in starts]
     if not return_lse:
         return torch.cat(parts, dim=1).reshape(B, Sq, H, Dh).to(q.dtype)
     o, lse = (torch.cat(t, dim=1) for t in zip(*parts))
     return o.reshape(B, Sq, H, Dh).to(q.dtype), lse.reshape(B, Sq, H)
+
+
+def _sdpa_lean(block, q, qg, k, v, q_offset: int, return_lse: bool):
+    """``_sdpa``'s chunks without a gradient, in chunks of LEAN_CHUNK
+    queries (where they divide Sq), each chunk's output written into one
+    output of q's dtype as it is made: neither every chunk's float32
+    output nor a chunk's scores at Q_CHUNK rows are live. Each query row
+    is computed as in ``_sdpa``."""
+    B, Sq, H, Dh = q.shape
+    qc = LEAN_CHUNK if Sq > LEAN_CHUNK and Sq % LEAN_CHUNK == 0 else Sq
+    out = torch.empty_like(qg, dtype=q.dtype)
+    # float32, as the block's; float64 in the float64 runs
+    lse = qg.new_empty(qg.shape[:-1], dtype=torch.promote_types(
+        qg.dtype, torch.float32)) if return_lse else None
+    for i in range(0, Sq, qc):
+        r = block(qg[:, i:i + qc], k, v, q_offset=q_offset + i)
+        if return_lse:
+            out[:, i:i + qc], lse[:, i:i + qc] = r
+        else:
+            out[:, i:i + qc] = r
+    out = out.reshape(B, Sq, H, Dh)
+    return (out, lse.reshape(B, Sq, H)) if return_lse else out
 
 
 def merge_partials(o, lse, reduce):
@@ -191,6 +221,25 @@ def merge_partials(o, lse, reduce):
     w = torch.exp(lse - m)
     return (reduce(w[..., None] * o, "sum")
             / reduce(w, "sum")[..., None]).to(o.dtype)
+
+
+def merge_in_rows(o, lse, reduce):
+    """``merge_partials`` of one set's o (B, S, H, Dh) and lse (B, S, H)
+    where no gradient is taken, over chunks of S: the (B, S, H) maximum and
+    sum whole, each chunk's float32 weighted output reduced and written
+    into one output in o's dtype. Each row's numbers are the whole
+    merge's; only a chunk of the float32 product is live (``row_chunk``),
+    not the product of the whole output and its sum."""
+    m = reduce(lse, "max")
+    w = torch.exp(lse - m)
+    den = reduce(w, "sum")
+    out = torch.empty_like(o)
+    n = row_chunk(o.shape[1], o[:, :1].numel())
+    for i in range(0, o.shape[1], n):
+        j = slice(i, i + n)
+        out[:, j] = (reduce(w[:, j, ..., None] * o[:, j], "sum")
+                     / den[:, j, ..., None]).to(o.dtype)
+    return out
 
 
 def stacked(t, op: str):
@@ -303,7 +352,7 @@ def _key_part(kernel: bool, start: int, q, k, v, cos_q, sin_q, cos_k, sin_k):
         o, lse = o.transpose(1, 2), lse.transpose(1, 2)
     else:
         o, lse = _sdpa(q, k, v, causal=True, q_offset=-start,
-                       return_lse=True)
+                       return_lse=True, lean=True)
     return o[None], lse[None], k
 
 
@@ -317,7 +366,9 @@ def _on_key_shards(kernel: bool, q, k, v, cos, sin):
     their shard; q is replicated there (under ``sp`` its sequence is
     gathered, the reference's trade), and its gradient there is a partial
     sum. Every other mesh dimension keeps the batch shard or replicates.
-    Returns (o, the rotated k placed as k)."""
+    Where no gradient is taken, each rank merges its rows in chunks
+    instead (``_merged_part``), so no rank holds a float32 product of the
+    whole output. Returns (o, the rotated k placed as k)."""
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
 
@@ -334,18 +385,35 @@ def _on_key_shards(kernel: bool, q, k, v, cos, sin):
                           pl):
             dst.append(x)
     _, offset = compute_local_shape_and_global_offset(k.shape, mesh, kv_pl)
+    tables = [on_mesh(t, mesh) for t in (cos, sin)]
+    args = (q.redistribute(mesh, q_pl), k.redistribute(mesh, kv_pl),
+            v.redistribute(mesh, kv_pl),
+            *(t.redistribute(mesh, rope_q) for t in tables),
+            *(t.redistribute(mesh, rope_k) for t in tables))
+    if not takes_grad(q, k, v):
+        groups = [mesh.get_group(i) for i, b in enumerate(kv_pl)
+                  if b == Shard(1)]
+        return local_map(partial(_merged_part, kernel, offset[1], groups),
+                         out_placements=(q_pl, kv_pl),
+                         in_placements=(q_pl, kv_pl, kv_pl) + (rope_q,) * 2
+                         + (rope_k,) * 2, device_mesh=mesh)(*args)
     fn = local_map(partial(_key_part, kernel, offset[1]),
                    out_placements=(stack_pl, stack_pl, kv_pl),
                    in_placements=(q_pl, kv_pl, kv_pl) + (rope_q,) * 2
                    + (rope_k,) * 2,
                    in_grad_placements=(q_grad, kv_pl, kv_pl) + (rope_q,) * 2
                    + (rope_k,) * 2, device_mesh=mesh)
-    tables = [on_mesh(t, mesh) for t in (cos, sin)]
-    o, lse, k = fn(q.redistribute(mesh, q_pl), k.redistribute(mesh, kv_pl),
-                   v.redistribute(mesh, kv_pl),
-                   *(t.redistribute(mesh, rope_q) for t in tables),
-                   *(t.redistribute(mesh, rope_k) for t in tables))
+    o, lse, k = fn(*args)
     return merge_partials(o, lse, lambda t, op: reduced(stacked(t, op))), k
+
+
+def _merged_part(kernel: bool, start: int, groups, *args):
+    """``_key_part`` of one rank, its partial softmax then merged with the
+    other ranks' over ``groups`` (``merge_in_rows``); returns (o, the
+    rotated k)."""
+    o, lse, k = _key_part(kernel, start, *args)
+    return merge_in_rows(o[0], lse[0],
+                         lambda t, op: all_reduced(t, op, groups)), k
 
 
 def attend_train(cfg, p, x, cos, sin):
@@ -365,12 +433,12 @@ def attend_train(cfg, p, x, cos, sin):
     return constrain(out, ("act_batch", "act_seq", "act_embed"))
 
 
-def _prefill_core(q, k, v, cos, sin):
-    """Rotary embedding, then the plain causal ``_sdpa``; returns (out, the
-    rotated k)."""
+def _prefill_core(q, k, v, cos, sin, lean: bool = False):
+    """Rotary embedding, then the plain causal ``_sdpa`` (``lean`` on a
+    rank's shards); returns (out, the rotated k)."""
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    return _sdpa(q, k, v, causal=True), k
+    return _sdpa(q, k, v, causal=True, lean=lean), k
 
 
 def attend_prefill(cfg, p, x, cos, sin):
@@ -385,7 +453,8 @@ def attend_prefill(cfg, p, x, cos, sin):
         return _out(o, p["wo"]), (k, v)
     core, args = _prefill_core, (q, k, v, cos, sin)
     if isinstance(q, DTensor):
-        core, args = _core_on_shards(core, *args, n_out=2)
+        core, args = _core_on_shards(partial(core, lean=True), *args,
+                                     n_out=2)
     o, k = core(*args)
     return _out(o, p["wo"]), (k, v)
 
@@ -478,14 +547,14 @@ def attend_full(q, k, v):
         return _full_on_key_shards(q, k, v)
     core, args = partial(_sdpa, causal=False), (q, k, v)
     if isinstance(q, DTensor):
-        core, args = _core_on_shards(core, *args)
+        core, args = _core_on_shards(partial(core, lean=True), *args)
     return core(*args)
 
 
 def _full_local(seq_groups, q, k, v):
     """One rank's unmasked attention over its own keys, the ranks' partial
     softmaxes merged over ``seq_groups`` (``merge_partials``)."""
-    o, lse = _sdpa(q, k, v, causal=False, return_lse=True)
+    o, lse = _sdpa(q, k, v, causal=False, return_lse=True, lean=True)
     return merge_partials(o, lse, lambda t, op: all_reduced(t, op,
                                                             seq_groups))
 

@@ -15,10 +15,12 @@ from dataclasses import dataclass
 
 import torch
 from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..core.forest_torch import resolve_device
-from ..sharding.context import cross_entropy_on_shards, in_scope, reduced
+from ..sharding.context import (all_reduced, cross_entropy_on_shards,
+                                in_scope, reduced)
 
 # ---------------------------------------------------------------- param specs
 
@@ -138,30 +140,173 @@ def f32(x):
     return x if x.dtype == torch.float64 else x.float()
 
 
-def rms_norm(x, w, eps: float = 1e-5):
-    """In float32, cast to x's dtype, and only then scaled by w. On a
-    DTensor whose normalized dimension is sharded (the Mamba2 gated norm
-    over the inner dimension) the mean square is all-reduced, a (B, S, 1)
-    statistic, and so is its gradient: the normalization and its backward
-    run on the shards."""
+# a row-chunked op runs in ROW_PARTS chunks of rows, so that a chunk's
+# float32 work is an eighth of the bf16 whole; a tensor of fewer than
+# ROW_MIN elements runs whole
+ROW_PARTS, ROW_MIN = 16, 1 << 20
+
+
+def row_chunk(rows: int, row_elems: int) -> int:
+    """The rows of one chunk of a row-chunked op on ``rows`` rows of
+    ``row_elems`` elements each."""
+    if rows * row_elems < ROW_MIN:
+        return rows
+    return -(-rows // ROW_PARTS)
+
+
+def _rms_rows(x, eps: float):
+    """x normalized over its last dimension in float32, cast to x's
+    dtype."""
     xf = f32(x)
-    if isinstance(x, DTensor) and any(
-            getattr(p, "dim", None) == x.ndim - 1 for p in x.placements):
-        var = reduced(torch.sum(xf * xf, dim=-1, keepdim=True))
-        # the identity, whose backward reduces a partial gradient here
-        var = var.redistribute(var.device_mesh, var.placements) / x.shape[-1]
-    else:
-        var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def layer_norm(x, w, b, eps: float = 1e-5):
-    """In float32, cast to x's dtype, then scaled by w and shifted by b."""
+def _layer_rows(x, eps: float):
+    """x centred and normalized over its last dimension in float32, cast
+    to x's dtype."""
     xf = f32(x)
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
-    out = (xf - mu) * torch.rsqrt(var + eps)
-    return out.to(x.dtype) * w.to(x.dtype) + b.to(x.dtype)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def in_row_chunks(fn, x, *args):
+    """``fn(x, *args)`` of a function of each row (x's last dimension)
+    alone, run on a chunk of rows at a time (``row_chunk``) and written
+    into one output of x's dtype: each row's numbers are the whole call's,
+    and only one chunk's intermediates are live."""
+    rows = x.reshape(-1, x.shape[-1])
+    n = row_chunk(rows.shape[0], x.shape[-1])
+    if rows.shape[0] <= n:
+        return fn(x, *args)
+    out = torch.empty_like(rows)
+    for i in range(0, rows.shape[0], n):
+        out[i:i + n] = fn(rows[i:i + n], *args)
+    return out.view(x.shape)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """``_rms_rows`` that keeps for its backward only x, in its own dtype,
+    and the (..., 1) float32 reciprocal root; the backward rebuilds the
+    normalized rows from them."""
+
+    @staticmethod
+    def forward(ctx, x, eps):
+        xf = f32(x)
+        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, r)
+        return (xf * r).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, r = ctx.saved_tensors
+        xhat = f32(x) * r
+        gf = f32(g)
+        dot = torch.mean(gf * xhat, dim=-1, keepdim=True)
+        return ((gf - xhat * dot) * r).to(x.dtype), None
+
+
+class _RMSNormShards(torch.autograd.Function):
+    """``_RMSNorm`` of a rank's shard of x's last dimension (``d`` whole):
+    the row sums over it, of x^2 forward and of the gradient's product
+    with the normalized rows backward, all-reduced over ``groups``."""
+
+    @staticmethod
+    def forward(ctx, x, eps, d, groups):
+        xf = f32(x)
+        r = torch.rsqrt(all_reduced(torch.sum(xf * xf, dim=-1, keepdim=True),
+                                    "sum", groups) / d + eps)
+        ctx.save_for_backward(x, r)
+        ctx.d, ctx.groups = d, groups
+        return (xf * r).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, r = ctx.saved_tensors
+        xhat = f32(x) * r
+        gf = f32(g)
+        dot = all_reduced(torch.sum(gf * xhat, dim=-1, keepdim=True), "sum",
+                          ctx.groups) / ctx.d
+        return ((gf - xhat * dot) * r).to(x.dtype), None, None, None
+
+
+class _LayerNorm(torch.autograd.Function):
+    """``_layer_rows`` that keeps for its backward only x, in its own
+    dtype, and the (..., 1) float32 mean and reciprocal root."""
+
+    @staticmethod
+    def forward(ctx, x, eps):
+        xf = f32(x)
+        mu = xf.mean(dim=-1, keepdim=True)
+        r = torch.rsqrt(((xf - mu) ** 2).mean(dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, mu, r)
+        return ((xf - mu) * r).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mu, r = ctx.saved_tensors
+        xhat = (f32(x) - mu) * r
+        gf = f32(g)
+        dot = torch.mean(gf * xhat, dim=-1, keepdim=True)
+        return ((gf - gf.mean(dim=-1, keepdim=True) - xhat * dot)
+                * r).to(x.dtype), None
+
+
+def _normalized(rows, fn, x, eps: float):
+    """x normalized row by row: through the ``autograd.Function`` ``fn``
+    where a gradient is taken; otherwise by ``rows`` directly, and, on a
+    DTensor, in row chunks (``in_row_chunks``) on each rank's local rows.
+    One device without a gradient runs ``rows`` whole: the program whose
+    trace gives the dry-run's features."""
+    grad = torch.is_grad_enabled() and x.requires_grad
+    if not isinstance(x, DTensor):
+        return fn.apply(x, eps) if grad else rows(x, eps)
+    pl = list(x.placements)
+    local = (lambda t: fn.apply(t, eps)) if grad else \
+        (lambda t: in_row_chunks(rows, t, eps))
+    return local_map(local, out_placements=pl, in_placements=(pl,),
+                     in_grad_placements=(pl,), device_mesh=x.device_mesh)(x)
+
+
+def _rows_local(x) -> bool:
+    """Whether each rank holds whole rows of x (its last dimension
+    unsharded): a plain tensor, or such a DTensor."""
+    return not isinstance(x, DTensor) or not any(
+        getattr(a, "dim", None) == x.ndim - 1 for a in x.placements)
+
+
+def rms_norm(x, w, eps: float = 1e-5):
+    """In float32, cast to x's dtype, and only then scaled by w. With a
+    gradient the normalization keeps x and its (..., 1) float32 root for
+    the backward (``_RMSNorm``), not float32 copies of x; without one, on
+    a mesh, it runs in row chunks. On a DTensor whose normalized dimension
+    is sharded (the Mamba2 gated norm over the inner dimension) the sum of
+    squares is all-reduced, a (B, S, 1) statistic, and so is its
+    gradient's (``_RMSNormShards``): the normalization and its backward
+    run on the shards. A partial sum
+    is reduced first, as ``sharding.context.residual`` reduces it."""
+    x = reduced(x)
+    if _rows_local(x):
+        return _normalized(_rms_rows, _RMSNorm, x, eps) * w.to(x.dtype)
+    mesh, pl = x.device_mesh, list(x.placements)
+    groups = [mesh.get_group(i) for i, a in enumerate(pl)
+              if getattr(a, "dim", None) == x.ndim - 1]
+    out = local_map(lambda t: _RMSNormShards.apply(t, eps, x.shape[-1],
+                                                   groups),
+                    out_placements=pl, in_placements=(pl,),
+                    in_grad_placements=(pl,), device_mesh=mesh)(x)
+    return out * w.to(x.dtype)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """In float32, cast to x's dtype, then scaled by w and shifted by b;
+    its float32 work kept as ``rms_norm`` keeps it (``_LayerNorm``, row
+    chunks)."""
+    x = reduced(x)
+    out = _normalized(_layer_rows, _LayerNorm, x, eps) if _rows_local(x) \
+        else _layer_rows(x, eps)
+    return out * w.to(x.dtype) + b.to(x.dtype)
 
 
 def gelu(x):

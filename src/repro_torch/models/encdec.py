@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..sharding.context import embedding_rows, on_mesh, project, residual
+from ..sharding.context import (LayerStack, batch_tables, embedding_rows,
+                                on_mesh, project, residual)
 from .attention import (_out, _qkv, attend_cross, attend_decode,
                         attend_full, attend_prefill, attend_train,
                         attn_specs, cross_kv, kv_cache_shape)
@@ -106,6 +107,14 @@ def _dec_layer(cfg, p, x, cos, sin, mode, kv=None, enc_out=None,
                self_cache=None, pos=None):
     """A decoder block; returns (x, its cross K/V, its self K/V). The cross
     K/V come from ``enc_out`` when ``kv`` is None."""
+    x, new_self = _dec_self(cfg, p, x, cos, sin, mode, self_cache, pos)
+    x, kv = _dec_cross(cfg, p, x, kv, enc_out)
+    return _dec_mlp(cfg, p, x), kv, new_self
+
+
+def _dec_self(cfg, p, x, cos, sin, mode, self_cache=None, pos=None):
+    """The block's self-attention and its residual; returns (x, its self
+    K/V)."""
     h = _norm(p["ln1"], x, cfg)
     new_self = None
     if mode == "train":
@@ -117,13 +126,21 @@ def _dec_layer(cfg, p, x, cos, sin, mode, kv=None, enc_out=None,
                                     self_cache, pos)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    x = residual(x, a)
+    return residual(x, a), new_self
+
+
+def _dec_cross(cfg, p, x, kv=None, enc_out=None):
+    """The block's cross-attention and its residual; returns (x, its cross
+    K/V)."""
     h = _norm(p["ln2"], x, cfg)
     if kv is None:
         kv = cross_kv(cfg, p["cross_attn"], enc_out)
-    x = residual(x, attend_cross(cfg, p["cross_attn"], h, kv))
-    x = residual(x, gelu_mlp(p["mlp"], _norm(p["ln3"], x, cfg)))
-    return x, kv, new_self
+    return residual(x, attend_cross(cfg, p["cross_attn"], h, kv)), kv
+
+
+def _dec_mlp(cfg, p, x):
+    """The block's MLP and its residual."""
+    return residual(x, gelu_mlp(p["mlp"], _norm(p["ln3"], x, cfg)))
 
 
 def _train_dec_layer(cfg, p, x, cos, sin, enc_out):
@@ -135,8 +152,8 @@ def _dec_blocks(cfg, params, x, mode, caches=None, enc_out=None, pos=None):
     caches {"cross": (k, v), "self": (k, v)}, each (L, B, S, Hkv, Dh));
     decode writes its K/V into ``caches["self"]`` in place at ``pos`` and
     returns (x, caches)."""
-    B, S = x.shape[:2]
-    cos, sin = _zero_rope(cfg, B, S, x.device)
+    S = x.shape[1]
+    cos, sin = batch_tables(lambda n: _zero_rope(cfg, n, S, x.device), x)
     layers = unstack(params["dec"])
     if mode == "train":
         for p in layers:
@@ -149,18 +166,20 @@ def _dec_blocks(cfg, params, x, mode, caches=None, enc_out=None, pos=None):
             x, _, _ = _dec_layer(cfg, p, x, cos, sin, mode, kv=(ck[i], cv[i]),
                                  self_cache=(sk[i], sv[i]), pos=pos)
         return x, caches
-    cross, selfs = [], []
+    _, axes = encdec_cache_spec(cfg, 1, 1, 1)
+    stacks = {n: tuple(LayerStack((len(layers),), a[1:]) for a in axes[n])
+              for n in ("cross", "self")}
     for p in layers:
-        x, kv, new_self = _dec_layer(cfg, p, x, cos, sin, mode,
-                                     enc_out=enc_out)
-        cross.append(kv)
-        selfs.append(new_self)
-    return x, {"cross": _stack_pairs(cross), "self": _stack_pairs(selfs)}
-
-
-def _stack_pairs(pairs) -> tuple:
-    """Per-layer (k, v) pairs as one (k, v) pair stacked over the layers."""
-    return tuple(torch.stack(t) for t in zip(*pairs))
+        # the sublayers called from here, so that each drops the residual
+        # it was given once it has made the next
+        x, new_self = _dec_self(cfg, p, x, cos, sin, mode)
+        x, kv = _dec_cross(cfg, p, x, enc_out=enc_out)
+        x = _dec_mlp(cfg, p, x)
+        for n, pair in (("cross", kv), ("self", new_self)):
+            for st, t in zip(stacks[n], pair):
+                st.put(t)
+    return x, {n: tuple(st.result() for st in pair)
+               for n, pair in stacks.items()}
 
 
 def _embed(cfg, params, tokens, offset: int = 0):

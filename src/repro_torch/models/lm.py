@@ -31,8 +31,9 @@ import math
 
 import torch
 
-from ..sharding.context import (constrain, constrain_tree, current_ctx,
-                                embedding_rows, project, residual)
+from ..sharding.context import (LayerStack, batch_tables, constrain,
+                                constrain_tree, current_ctx, embedding_rows,
+                                project, residual)
 from .attention import (attend_decode, attend_prefill, attend_train,
                         attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, KV_HEADS, VOCAB, ParamSpec,
@@ -41,6 +42,10 @@ from .common import (BATCH, EMBED, HEAD_DIM, KV_HEADS, VOCAB, ParamSpec,
                      unstack)
 from .mlp import swiglu, swiglu_specs
 from .moe import moe_apply, moe_specs
+
+
+# the stacked KV caches' logical axes
+CACHE_AXES = ("layers", BATCH, "cache_seq", KV_HEADS, HEAD_DIM)
 
 
 def block_specs(cfg) -> dict:
@@ -88,6 +93,13 @@ def _cast_block(cfg, layer):
 
 def _block_apply(cfg, p, x, cos, sin, mode, cache=None, pos=None):
     """One block on x (B,S,d); returns (x, the layer's (k, v), aux)."""
+    x, new_cache = _attention_half(cfg, p, x, cos, sin, mode, cache, pos)
+    x, aux = _mlp_half(cfg, p, x)
+    return x, new_cache, aux
+
+
+def _attention_half(cfg, p, x, cos, sin, mode, cache=None, pos=None):
+    """The block's attention and its residual; returns (x, (k, v))."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     new_cache = None
     if mode == "train":
@@ -98,13 +110,17 @@ def _block_apply(cfg, p, x, cos, sin, mode, cache=None, pos=None):
         a, new_cache = attend_decode(cfg, p["attn"], h, cos, sin, cache, pos)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    x = residual(x, a)
+    return residual(x, a), new_cache
+
+
+def _mlp_half(cfg, p, x):
+    """The block's MLP (or MoE) and its residual; returns (x, aux)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.n_experts:
         m, aux = moe_apply(cfg, p["moe"], h)
     else:
         m, aux = swiglu(p["mlp"], h), torch.zeros((), device=x.device)
-    return residual(x, m), new_cache, aux
+    return residual(x, m), aux
 
 
 def _train_layer(cfg, lp, x, cos, sin):
@@ -133,7 +149,8 @@ def _run_blocks(cfg, params, x, cos, sin, mode, caches=None, pos=None):
     """The stacked layers on x; returns (x, caches, aux_sum). Prefill
     returns fresh caches (k, v), each (L, B, S, Hkv, Dh); decode writes its
     K/V into ``caches`` IN PLACE at ``pos`` and returns them; training
-    returns no caches."""
+    returns no caches. A prefill on a mesh writes each layer's K/V into the
+    stacked caches in their layout as it goes (``LayerStack``)."""
     layers = unstack(params["blocks"])
     if mode == "train":
         if remat_grouped(cfg):
@@ -146,17 +163,22 @@ def _run_blocks(cfg, params, x, cos, sin, mode, caches=None, pos=None):
             return x, None, torch.stack(auxs).sum()
         x, aux = _train_layers(cfg, layers, x, cos, sin)
         return x, None, aux
-    ks, vs = [], []
+    axes = CACHE_AXES[1:]
+    ks, vs = LayerStack((len(layers),), axes), LayerStack((len(layers),), axes)
     for i, lp in enumerate(layers):
         cache = (caches[0][i], caches[1][i]) if mode == "decode" else None
-        x, (k, v), _ = _block_apply(cfg, _cast_block(cfg, lp), x, cos, sin,
-                                    mode, cache=cache, pos=pos)
+        p = _cast_block(cfg, lp)
+        # the halves called from here, so that each drops the residual it
+        # was given once it has made the next
+        x, (k, v) = _attention_half(cfg, p, x, cos, sin, mode, cache, pos)
+        x, _ = _mlp_half(cfg, p, x)
         x = constrain(x, ("act_batch", "act_seq", "act_embed"))
-        ks.append(k)
-        vs.append(v)
+        if mode == "prefill":
+            ks.put(k)
+            vs.put(v)
     if mode == "decode":
         return x, caches, None
-    return x, (torch.stack(ks), torch.stack(vs)), None
+    return x, (ks.result(), vs.result()), None
 
 
 def mrope_positions(s_img: int, s_text: int, device=None):
@@ -171,7 +193,12 @@ def mrope_positions(s_img: int, s_text: int, device=None):
     return torch.cat([img, txt], dim=0)
 
 
-def _cos_sin(cfg, positions, batch: int):
+def _cos_sin(cfg, positions, x):
+    """The rotary tables (B, S, Dh / 2) of x's batch (``batch_tables``)."""
+    return batch_tables(lambda n: _tables(cfg, positions, n), x)
+
+
+def _tables(cfg, positions, batch: int):
     Dh = cfg.resolved_head_dim
     pos = positions[None].expand(batch, *positions.shape)
     if cfg.family == "vlm":
@@ -213,8 +240,7 @@ def lm_loss(cfg, params, batch_dict):
     positions, plus 0.01 x the MoE's load-balance loss."""
     x, s_img = _embed_inputs(cfg, params, batch_dict)
     cos, sin = _cos_sin(cfg, _positions(cfg, x, s_img,
-                                        batch_dict["tokens"].shape[1]),
-                        x.shape[0])
+                                        batch_dict["tokens"].shape[1]), x)
     x, _, aux = _run_blocks(cfg, params, x, cos, sin, "train")
     logits = _logits(cfg, params, x)
     if cfg.family == "vlm":
@@ -227,13 +253,20 @@ def lm_loss(cfg, params, batch_dict):
 
 def lm_prefill(cfg, params, batch_dict):
     """Logits of the last position (B, 1, V) and the prompt's caches (k, v),
-    each (L, B, s_img + S, Hkv, Dh)."""
-    x, s_img = _embed_inputs(cfg, params, batch_dict)
-    cos, sin = _cos_sin(cfg, _positions(cfg, x, s_img,
-                                        batch_dict["tokens"].shape[1]),
-                        x.shape[0])
-    x, caches, _ = _run_blocks(cfg, params, x, cos, sin, "prefill")
+    each (L, B, s_img + S, Hkv, Dh). The embedded inputs go straight to
+    the layers, bound to no name here, so they are freed once the first
+    layer has made its output."""
+    x, caches, _ = _run_blocks(cfg, params, *_embedded(cfg, params,
+                                                       batch_dict),
+                               "prefill")
     return _logits(cfg, params, x[:, -1:]), caches
+
+
+def _embedded(cfg, params, batch_dict):
+    """(x, cos, sin): the embedded inputs and their rotary tables."""
+    x, s_img = _embed_inputs(cfg, params, batch_dict)
+    return (x, *_cos_sin(cfg, _positions(cfg, x, s_img,
+                                         batch_dict["tokens"].shape[1]), x))
 
 
 def lm_decode(cfg, params, batch_dict, caches):
@@ -263,5 +296,4 @@ def lm_cache_spec(cfg, batch: int, max_len: int):
     stacked KV caches."""
     shape = (cfg.n_layers,) + kv_cache_shape(cfg, batch, max_len)
     dt = getattr(torch, cfg.dtype)
-    axes = ("layers", BATCH, "cache_seq", KV_HEADS, HEAD_DIM)
-    return ((shape, dt), (shape, dt)), (axes, axes)
+    return ((shape, dt), (shape, dt)), (CACHE_AXES, CACHE_AXES)

@@ -100,15 +100,18 @@ def dispatch_slots(e_idx, n_experts: int, cap: int):
     return keep, torch.where(keep, my_rank, torch.full_like(my_rank, cap))
 
 
-def dispatch(xt, e_idx, keep, slot, n_experts: int, cap: int):
+def dispatch(xt, e_idx, keep, slot, n_experts: int, cap: int,
+             inplace: bool = False):
     """The (E, cap + 1, d) buffer of one routing choice: each kept token's
     row at (its expert, its slot), zeros elsewhere. A scatter-add into
     distinct slots (row ``cap`` collects the dropped tokens as zeros): the
-    same sums as the reference's ``.at[].add``."""
+    same sums as the reference's ``.at[].add``. ``inplace`` scatters into
+    the zeroed buffer itself, so that one buffer is live, not two."""
     buf = xt.new_zeros((n_experts, cap + 1, xt.shape[1]))
-    return buf.index_put((e_idx, slot),
-                         torch.where(keep[:, None], xt, torch.zeros_like(xt)),
-                         accumulate=True)
+    put = buf.index_put_ if inplace else buf.index_put
+    return put((e_idx, slot),
+               torch.where(keep[:, None], xt, torch.zeros_like(xt)),
+               accumulate=True)
 
 
 def experts(buf, wi_gate, wi_up, wo):
@@ -158,9 +161,11 @@ def _route_rows(cfg, router, x):
 
 
 def _scatter_rows(n_experts: int, cap: int, x, e_idx, keep, slot):
-    """``dispatch`` of one rank's (B, S) tokens."""
+    """``dispatch`` of one rank's (B, S) tokens, in place: each rank's
+    buffer is the whole (E, cap + 1, d) before its shards are summed."""
     return dispatch(x.reshape(-1, x.shape[-1]), e_idx.reshape(-1),
-                    keep.reshape(-1), slot.reshape(-1), n_experts, cap)
+                    keep.reshape(-1), slot.reshape(-1), n_experts, cap,
+                    inplace=True)
 
 
 def _gather_rows(e0: int, s0: int, y, e_idx, slot, w):

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from ..sharding.context import constrain, embedding_rows, project, residual
+from ..sharding.context import (LayerStack, batch_tables, constrain,
+                                embedding_rows, project, residual)
 from .attention import (attend_decode, attend_prefill, attend_train,
                         attn_specs, kv_cache_shape)
 from .common import (BATCH, EMBED, HEAD_DIM, HEADS, KV_HEADS, LORA, VOCAB,
@@ -85,6 +86,7 @@ def _shared_block(cfg, shared, lora, x, cos, sin, mode, kv_cache=None,
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = residual(x, a)
+    del a, h                  # not kept beside the MLP's activations
     h = rms_norm(x, shared["ln2"], cfg.norm_eps)
     mlp_p = dict(shared["mlp"])
     mlp_p["wi_gate"] = mlp_p["wi_gate"] + (
@@ -121,10 +123,12 @@ def _forward(cfg, params, x, mode, caches=None, pos=None):
     decode = mode == "decode"
     if decode:
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim,
+                                cfg.rope_theta)
     else:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device)[None].expand(B, S)
-    cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        cos, sin = batch_tables(lambda n: rope_cos_sin(
+            torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(
+                n, S), cfg.resolved_head_dim, cfg.rope_theta), x)
     groups = [unstack(g) for g in unstack(params["mamba"])]
     loras = unstack(params["lora"])
 
@@ -134,7 +138,10 @@ def _forward(cfg, params, x, mode, caches=None, pos=None):
             x = remat(cfg.remat, _train_group, *args)
         return x, None
 
-    convs, ssms, ks, vs = [], [], [], []
+    G, E = len(groups), len(groups[0])
+    _, axes = zamba_cache_spec(cfg, B, S)
+    convs, ssms = (LayerStack((G, E), axes[n][2:]) for n in ("conv", "ssm"))
+    ks, vs = (LayerStack((G,), a[1:]) for a in axes["kv"])
     for g, (layers, lora) in enumerate(zip(groups, loras)):
         for e, lp in enumerate(layers):
             h = rms_norm(x, lp["ln"], cfg.norm_eps)
@@ -146,21 +153,22 @@ def _forward(cfg, params, x, mode, caches=None, pos=None):
                 caches["ssm"][g, e].copy_(ns)
             else:
                 out, (nc, ns) = mamba_mix(cfg, lp["mix"], h)
-                convs.append(nc)
-                ssms.append(ns)
+                convs.put(nc)
+                ssms.put(ns)
             x = x + out
+            del h, out        # not kept beside the next layer's
         kv = (caches["kv"][0][g], caches["kv"][1][g]) if decode else None
         x, (k, v) = _shared_block(cfg, params["shared"], lora, x, cos, sin,
                                   mode, kv_cache=kv, pos=pos)
-        ks.append(k)
-        vs.append(v)
+        if not decode:
+            ks.put(k)
+            vs.put(v)
     if decode:
         return x, caches
-    G, E = len(groups), len(groups[0])
     new_caches = {
-        "conv": torch.stack(convs).unflatten(0, (G, E)),
-        "ssm": torch.stack(ssms).unflatten(0, (G, E)),
-        "kv": (torch.stack(ks), torch.stack(vs)),
+        "conv": convs.result(),
+        "ssm": ssms.result(),
+        "kv": (ks.result(), vs.result()),
     }
     return x, new_caches
 
@@ -181,9 +189,12 @@ def zamba_loss(cfg, params, batch_dict):
 
 
 def zamba_prefill(cfg, params, batch_dict):
-    """Logits of the last position (B, 1, V) and the caches of the prompt."""
-    x = _embed(cfg, params, batch_dict["tokens"])
-    x, caches = _forward(cfg, params, x, "prefill")
+    """Logits of the last position (B, 1, V) and the caches of the prompt.
+    The embedding goes straight to the layers, bound to no name here, so
+    it is freed once the first layer has made its output."""
+    x, caches = _forward(cfg, params, _embed(cfg, params,
+                                             batch_dict["tokens"]),
+                         "prefill")
     x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
     return project(x, params["lm_head"]), caches
 

@@ -577,6 +577,71 @@ def _from_local(t, mesh, placements, shape: tuple):
                               shape=torch.Size(shape), stride=tuple(stride))
 
 
+class LayerStack:
+    """Per-layer tensors of one kind (a prefill's K or V, a Mamba2 state)
+    stacked over leading layer dimensions ``lead``, as ``torch.stack``
+    stacks them, but held once. Plain tensors are kept and stacked at the
+    end (``result``), bit for bit the stack: one device runs the program
+    whose trace gives the dry-run's features. A DTensor is first taken to
+    the placements of the cache's logical ``axes`` (one layer's, the
+    ``layers`` dimensions left out) on every mesh dimension where it is
+    replicated, a local slice and no communication, and its local shard
+    is then written into one stacked local buffer, allocated at the first
+    layer: no rank holds every layer's tensor beside the stack, nor a
+    layer's whole where the cache holds a shard. Every layer takes the
+    first layer's placements."""
+
+    def __init__(self, lead: tuple, axes: tuple):
+        self.lead, self.axes = tuple(lead), tuple(axes)
+        self.parts, self.buf, self.n = [], None, 0
+
+    def put(self, t):
+        if not isinstance(t, DTensor):
+            self.parts.append(t)
+            return
+        if self.buf is None:
+            want = constrain_placements(t, self.axes)
+            self.pl = [b if a.is_partial() or (
+                a == Replicate() and isinstance(b, Shard)) else a
+                for a, b in zip(t.placements, want)]
+            self.mesh, self.shape = t.device_mesh, tuple(t.shape)
+        if list(t.placements) != self.pl:
+            t = t.redistribute(self.mesh, self.pl)
+        local = t.to_local()
+        if self.buf is None:
+            self.buf = local.new_empty((math.prod(self.lead),)
+                                       + tuple(local.shape))
+        self.buf[self.n].copy_(local)
+        self.n += 1
+
+    def result(self):
+        if self.buf is None:
+            out = torch.stack(self.parts)
+            return out.unflatten(0, self.lead) if len(self.lead) > 1 else out
+        k = len(self.lead)
+        pl = [Shard(a.dim + k) if isinstance(a, Shard) else a
+              for a in self.pl]
+        return _from_local(self.buf.view(self.lead + self.buf.shape[1:]),
+                           self.mesh, pl, self.lead + self.shape)
+
+
+def batch_tables(make, x):
+    """``make(n)``, tables of n rows that every row of x's batch shares
+    (the rotary cos and sin, (B, S, ...)), for x's batch. Where x is a
+    DTensor inside a scope, each rank makes only the rows of its own batch
+    shard, a DTensor sharded as ``act_batch`` shards the batch: made whole
+    and sliced, every rank would hold the whole batch's tables. Otherwise
+    ``make(x.shape[0])``."""
+    if _CTX.get() is None or not isinstance(x, DTensor):
+        return make(x.shape[0])
+    mesh = x.device_mesh
+    pl = constrain_placements(x, ("act_batch",) + (None,) * (x.ndim - 1))
+    local, _ = compute_local_shape_and_global_offset(tuple(x.shape), mesh,
+                                                     pl)
+    return tuple(_from_local(t, mesh, pl, (x.shape[0],) + tuple(t.shape[1:]))
+                 for t in make(local[0]))
+
+
 def all_reduced(t, op: str, groups: list):
     """``t`` reduced by ``op`` over each process group in turn (the
     functional collectives DTensor itself uses)."""

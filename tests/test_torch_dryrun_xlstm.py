@@ -43,13 +43,16 @@ BATCH = 8
 # reference's while loops count more control ops a trip than the port's
 # one a trip of a scan; the port's backward recomputes each step's forward
 # from its entering state (special ops), where the reference's VJP reads
-# the residuals its forward stacked (global memory); work_per_shard and
-# num_shards are the launch's, sync_ops and shared_mem_vol 0 on both
+# the residuals its forward stacked (global memory); the norms' backward
+# (``models/common.py::_RMSNorm``) takes fewer scalar operands than
+# autograd's of the same formula (param_mem_vol: 0.306 before it);
+# work_per_shard and num_shards are the launch's, sync_ops and
+# shared_mem_vol 0 on both
 FEATURE_RATIOS = {
     "train": {"total_instr": 0.960, "arith_ops": 1.085,
               "special_ops": 1.592, "logic_ops": 0.679,
               "control_ops": 0.259, "global_mem_vol": 0.617,
-              "param_mem_vol": 0.306, "arith_intensity": 1.758},
+              "param_mem_vol": 0.296, "arith_intensity": 1.758},
     "prefill": {"total_instr": 1.043, "arith_ops": 0.996,
                 "special_ops": 1.000, "logic_ops": 0.668,
                 "control_ops": 0.247, "global_mem_vol": 1.566,
